@@ -7,19 +7,22 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
 1. Device: the card's name and power limit, and the time to build the
    CUDA kernels from ``src/repro_torch/kernels/csrc``.
 2. Kernel checks: each kernel against its plain PyTorch version on the
-   card, bit-exact, at the main path's shapes, with CUDA-event times per
-   launch for both and the kernel's bound at those shapes.
-3. Replay: the YCSB-B stream through ``repro_torch.frontend.replay`` on
-   the ``batched`` backend, split and fused, checked against a numpy
-   oracle of serial semantics and against each other; the launch counts
-   show the kernels ran on that path.
+   card, bit-exact, on inputs with planted hits, with CUDA-event times
+   per launch for both and the kernel's bound at the timed shapes.
+3. Replays through ``repro_torch.frontend.replay`` on the ``batched``
+   backend, each checked against a numpy oracle of serial semantics:
+   YCSB-B split and fused (they must also agree), YCSB-E range scans
+   (fused, one ``sim_plan`` launch a scan; the first scans are also held
+   against the per-pass search path) and YCSB-A through the §VI DRAM write
+   buffer (fused).  The launch counts, set to 0 before each path and read
+   after it, show which kernels ran on that path.
 4. One JSON line of the kernels, their launches and times.
 5. The card's ``nvidia-smi`` name and power limit, then the last line:
    ``{"ok": true, "device": {...}}``.
 
 The default scale is 20% of the paper's 650 MiB index: 16,384 key pages
-and 16,384 value pages of 4 KiB on 16 chips.  ``--key-pages`` and
-``--n-ops`` cut it for a quick check.
+and 16,384 value pages of 4 KiB on 16 chips, for every path.
+``--key-pages`` and ``--n-ops`` cut it for a quick check.
 """
 from __future__ import annotations
 
@@ -36,7 +39,13 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.backend import BatchedKernelBackend  # noqa: E402
+from repro_torch.core.commands import Command  # noqa: E402
 from repro_torch.core.engine import SimChipArray  # noqa: E402
+from repro_torch.core.page import mask_header_slots  # noqa: E402
+from repro_torch.core.range_query import (RangePlan,  # noqa: E402
+                                          approximate_range,
+                                          evaluate_plan_on_pages,
+                                          evaluate_plan_per_pass, exact_range)
 from repro_torch.frontend import RunConfig, replay  # noqa: E402
 from repro_torch.kernels import native  # noqa: E402
 from repro_torch.kernels.layout import (tensor_to_words,  # noqa: E402
@@ -45,6 +54,9 @@ from repro_torch.kernels.sim_fused.ops import sim_fused_lookup  # noqa: E402
 from repro_torch.kernels.sim_fused.ref import sim_lookup_ref  # noqa: E402
 from repro_torch.kernels.sim_gather.ops import sim_gather  # noqa: E402
 from repro_torch.kernels.sim_gather.ref import sim_gather_ref  # noqa: E402
+from repro_torch.kernels.sim_plan.ops import sim_plan  # noqa: E402
+from repro_torch.kernels.sim_plan.ref import (plan_pass_rows,  # noqa: E402
+                                              sim_plan_ref)
 from repro_torch.kernels.sim_search.ops import sim_search  # noqa: E402
 from repro_torch.kernels.sim_search.ref import (sim_search_ref,  # noqa: E402
                                                 stream_planes)
@@ -62,6 +74,8 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 STREAM_OPS = 39
 # Per (query, slot) match: 2 XOR, 2 AND, 1 OR, 1 compare.
 MATCH_OPS = 6
+# Per (real plan pass, slot): the match and an OR into its accumulator.
+PASS_OPS = MATCH_OPS + 1
 
 SRC = "src/repro_torch/kernels/csrc"
 KERNELS = {
@@ -71,6 +85,8 @@ KERNELS = {
                    "src/repro/kernels/sim_gather/sim_gather.py:31"),
     "sim_lookup": (f"{SRC}/sim_lookup.cu",
                    "src/repro/kernels/sim_fused/sim_fused.py:175"),
+    "sim_plan": (f"{SRC}/sim_plan.cu",
+                 "src/repro/kernels/sim_plan/sim_plan.py:49"),
 }
 
 
@@ -241,6 +257,87 @@ def lookup_bound(n_rows, slots):
     return ops, nbytes
 
 
+def plan_groups(keys, rng, kind):
+    """Plan groups over (N, 512) 64-bit domain keys whose page 0 slots
+    100..163 hold ``base + 0..63``, and the planted (group, slot) cells on
+    page 0 that must be set and cleared.
+
+    ``check``: an exact range around ``base`` with an exclude block on
+    slot 102, a group of exclude passes only (no include: all zero), an
+    approximate range and an all-PAD group.  ``replay``: one exact range
+    of 100 keys, the replay's scan shape.  ``work``: two exact ranges
+    2^40 wide, about 90 passes each (exact 64-bit plans)."""
+    base = int(keys[0, 100])
+    if kind == "check":
+        return ([RangePlan(exact_range(base + 1, base + 49).include,
+                           exact_range(base + 2, base + 3).include),
+                 RangePlan((), exact_range(base, base + 4).include),
+                 approximate_range(base, base + 40), RangePlan(())],
+                [(0, 101)], [(0, 102), (1, 101)])
+    if kind == "replay":
+        return [exact_range(base + 1, base + 101)], [(0, 101)], [(0, 100)]
+    return ([exact_range(base - int(rng.integers(2**39, 2**40)),
+                         base + int(rng.integers(2**39, 2**40)))
+             for _ in range(2)], [(0, 101), (1, 101)], [])
+
+
+def plan_case(dev, n_pages, p_pad, kind, seed):
+    """Random domain keys with a planted run on page 0, the ``kind`` plan
+    groups as pass rows padded to ``p_pad`` (PASS_PAD rows), and the
+    stored planes randomized by the §IV-C1 stream.  Returns the operands,
+    the expected bits from direct evaluation of the plans on the keys,
+    and the planted set / cleared cells."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(1, 2**48, (n_pages, 512), dtype=np.uint64)
+    keys[0, 100:164] = (int(rng.integers(2**41, 2**47))
+                        + np.arange(64, dtype=np.uint64))
+    plans, set_cells, clear_cells = plan_groups(keys, rng, kind)
+    q = np.zeros((len(plans), p_pad, 2), np.uint32)
+    m, f = np.zeros_like(q), np.zeros((len(plans), p_pad), np.uint32)
+    for g, plan in enumerate(plans):
+        cmd = Command.plan(0, plan.include, plan.exclude)
+        q[g], m[g], f[g] = plan_pass_rows(cmd.plan_include, cmd.plan_exclude,
+                                          p_pad)
+    ids = rng.integers(0, 2048, n_pages).astype(np.uint32)
+    seeds = (7 + rng.integers(0, 16, n_pages)).astype(np.uint32)
+    s_lo, s_hi = stream_np(ids, seeds)
+    lo = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32) ^ s_lo
+    hi = (keys >> np.uint64(32)).astype(np.uint32) ^ s_hi
+    want = np.stack([plan.evaluate(keys) for plan in plans])
+    return ([words_to_tensor(a, dev) for a in (lo, hi, q, m, f, ids, seeds)],
+            want, set_cells, clear_cells)
+
+
+def check_plan_hits(plain, want, set_cells, clear_cells):
+    """The plain version's bits equal direct evaluation of the plans, the
+    planted include hits are set, the excluded ones cleared, and each
+    group with an include pass has hits: not a comparison of empty maps."""
+    bits = np.unpackbits(tensor_to_words(plain).view(np.uint8), axis=-1,
+                         bitorder="little").astype(bool)
+    if not np.array_equal(bits, want):
+        raise AssertionError("plain plan bitmaps differ from direct "
+                             "evaluation of the plans")
+    for g, s in set_cells:
+        if not bits[g, 0, s]:
+            raise AssertionError(f"planted plan hit {(g, s)} missing")
+    for g, s in clear_cells:
+        if bits[g, 0, s]:
+            raise AssertionError(f"excluded plan cell {(g, s)} is set")
+
+
+def plan_bound(flags, n_pages):
+    """Work of one launch: the stream once per (page, slot), the real
+    (non-PAD) passes per slot, the combine and ballots per (group, page)."""
+    f = tensor_to_words(flags)
+    n_groups, p_pad = f.shape
+    real = int((f != 0).sum())
+    ops = (n_pages * 512 * STREAM_OPS + real * n_pages * 512 * PASS_OPS
+           + n_groups * n_pages * (512 + 16))
+    nbytes = (2 * n_pages * 512 * 4 + n_groups * p_pad * 5 * 4
+              + 2 * n_pages * 4 + n_groups * n_pages * 16 * 4)
+    return ops, nbytes
+
+
 def bound(ops, nbytes):
     t_ops, t_bytes = ops / INT32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
@@ -299,6 +396,33 @@ def kernel_checks(dev) -> dict:
         shape=f"B=64 rows, randomized, {int((want < 512).sum())} hits",
         bound=bound(*lookup_bound(64, slots)))
 
+    err = 0
+    for n_pages, p_pad, kind in ((32, 16, "check"), (64, 128, "check"),
+                                 (70, 16, "check"), (32, 16, "replay"),
+                                 (64, 128, "work")):
+        args, want, set_cells, clear_cells = plan_case(
+            dev, n_pages, p_pad, kind, n_pages + p_pad)
+        plain = sim_plan_ref(*args, randomized=True)
+        check_plan_hits(plain, want, set_cells, clear_cells)
+        err = max(err, max_abs_err([sim_plan(*args, randomized=True)],
+                                   [plain]))
+    timed = {}
+    for n_pages, p_pad, kind in ((32, 16, "replay"), (64, 128, "work")):
+        args, _, _, _ = plan_case(dev, n_pages, p_pad, kind, 5)
+        timed[kind] = dict(
+            ms=device_ms(lambda: sim_plan(*args, randomized=True), 200),
+            plain_ms=device_ms(lambda: sim_plan_ref(*args, randomized=True),
+                               10),
+            bound=bound(*plan_bound(args[4], n_pages)))
+        log(f"kernel sim_plan [{kind}: G={args[2].shape[0]}, P={p_pad}, "
+            f"N={n_pages}]: {timed[kind]['ms']:.6f} ms/launch, plain "
+            f"{timed[kind]['plain_ms']:.6f} ms, bound "
+            f"{timed[kind]['bound'][0]:.6f} ms ({timed[kind]['bound'][1]})")
+    rows["sim_plan"] = dict(
+        max_abs_err=err, **timed["replay"],
+        shape="replay scan: G=1, P=16, N=32, randomized, planted hits",
+        work=timed["work"])
+
     for name, r in rows.items():
         if r["max_abs_err"] != 0:
             raise AssertionError(f"{name}: kernel differs from its plain "
@@ -330,40 +454,152 @@ class TimedBackend(BatchedKernelBackend):
 
 
 def oracle(wl, n_key_pages):
-    """Serial semantics in plain numpy: reads see the latest write."""
+    """Serial semantics in plain numpy: reads see the latest write; a scan
+    of key ids [k, k + len) counts the stored keys it covers, clipped to
+    the index, and leaves values alone."""
     n_keys = n_key_pages * KEYS_PER_PAGE
     values = (np.arange(1, n_keys + 1, dtype=np.uint64)
               * np.uint64(0x9E3779B97F4A7C15)) | np.uint64(1)
     out = np.zeros(len(wl.ops), np.uint64)
+    counts = np.zeros(len(wl.ops), np.int64)
     for qi, (op, k) in enumerate(zip(wl.ops, wl.keys)):
         if op == 0:
             out[qi] = values[k]
-        else:
+        elif op == 1:
             values[k] = np.uint64(qi * 2 + 1)
-    return out
+        else:
+            counts[qi] = min(k + 1 + int(wl.scan_lens[qi]), n_keys + 1) \
+                - (k + 1)
+    return out, counts
 
 
-def run_replay(wl, n_key_pages, n_chips, fused):
+def run_replay(label, wl, n_key_pages, n_chips, config):
+    """One path: fresh chips, launch counts and peak device memory set to
+    0 just before the replay and read just after it."""
     pages_per_chip = -(-2 * n_key_pages // n_chips) + 1
     chips = SimChipArray(n_chips=n_chips, pages_per_chip=pages_per_chip,
                          device_seed=7)
     backend = TimedBackend(chips, n_load=2 * n_key_pages)
-    before = dict(native.LAUNCHES)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launches()
     t0 = time.perf_counter()
-    rep = replay(wl, backend, RunConfig(burst=64, fused=fused))
+    rep = replay(wl, backend, config)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    grew = {k: native.LAUNCHES[k] - before[k] for k in native.LAUNCHES}
+    grew = dict(native.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
     ops_s = len(wl.ops) / (wall_s - backend.load_s)
-    log(f"replay {'fused' if fused else 'split'}: wall {wall_s:.3f} s "
-        f"(bulk load of {2 * n_key_pages} pages {backend.load_s:.3f} s), "
-        f"{ops_s:.1f} ops/s after the load; kernel_launches "
-        f"{rep.kernel_launches}, staged_bytes {rep.staged_bytes}, "
-        f"result_bytes {rep.result_bytes}, flushes {rep.flushes}, "
-        f"resident rows {backend.store.resident_rows}, launches by kernel "
-        f"{grew}")
-    return rep, grew
+    log(f"replay {label}: wall {wall_s:.3f} s (bulk load of "
+        f"{2 * n_key_pages} pages {backend.load_s:.3f} s), {ops_s:.1f} ops/s "
+        f"after the load; reads {rep.n_reads}, writes {rep.n_writes}, scans "
+        f"{rep.n_scans}; flushes {rep.flushes}, kernel_launches "
+        f"{rep.kernel_launches}, launches by kernel {grew}, staged_bytes "
+        f"{rep.staged_bytes}, result_bytes {rep.result_bytes}, programs "
+        f"{rep.programs}, write_flushes {rep.write_flushes}, "
+        f"buffer_read_hits {rep.buffer_read_hits}, resident rows "
+        f"{backend.store.resident_rows}, peak device memory {peak} bytes")
+    return rep, grew, backend, peak
+
+
+def check_replay(label, wl, rep, grew, config, n_key_pages):
+    """Values and scan counts equal the oracle; the launches by kernel add
+    up to the backend's count; one ``sim_plan`` launch a scan."""
+    want, counts = oracle(wl, n_key_pages)
+    reads, scans = wl.ops == 0, wl.ops == 2
+    if not rep.read_hits[reads].all():
+        raise AssertionError(f"{label}: a read missed its key")
+    if not np.array_equal(rep.read_values[reads], want[reads]):
+        raise AssertionError(f"{label}: read values differ from the oracle")
+    if scans.any() and not np.array_equal(rep.scan_counts[scans],
+                                          counts[scans]):
+        raise AssertionError(f"{label}: scan counts differ from the oracle")
+    if (rep.n_scans, grew["sim_plan"]) != (int((counts[scans] > 0).sum()),) * 2:
+        raise AssertionError(f"{label}: {grew['sim_plan']} sim_plan launches "
+                             f"and {rep.n_scans} scans for "
+                             f"{int(scans.sum())} scan ops")
+    if sum(grew.values()) != rep.kernel_launches:
+        raise AssertionError(f"{label}: launches by kernel {grew} do not add "
+                             f"up to kernel_launches {rep.kernel_launches}")
+    if config.fused and rep.kernel_launches != rep.flushes:
+        raise AssertionError(f"{label}: {rep.kernel_launches} launches for "
+                             f"{rep.flushes} flushes")
+    if config.write_buffer and not (
+            rep.buffer_read_hits > 0 and rep.write_flushes > 0
+            and rep.programs < rep.n_writes):
+        raise AssertionError(f"{label}: the write buffer neither served "
+                             "reads nor coalesced writes")
+
+
+def check_scan_plans(backend, wl, rep, n_key_pages, n_scans):
+    """The first scans again on the replay's backend: the fused PLAN
+    bitmaps equal the per-pass searches combined on the host
+    (``sim_search`` on the card), and count the replay's scan counts."""
+    n_keys = n_key_pages * KEYS_PER_PAGE
+    for qi in np.nonzero(wl.ops == 2)[0][:n_scans]:
+        lo = int(wl.keys[qi]) + 1
+        hi = min(lo + int(wl.scan_lens[qi]), n_keys + 1)
+        pages = list(range((lo - 1) // KEYS_PER_PAGE,
+                           min((hi - 2) // KEYS_PER_PAGE, n_key_pages - 1)
+                           + 1))
+        plan = exact_range(lo, hi, width=64)
+        fused = evaluate_plan_on_pages(backend, plan, pages)
+        if not np.array_equal(fused,
+                              evaluate_plan_per_pass(backend, plan, pages)):
+            raise AssertionError(f"scan {qi}: PLAN differs from per-pass")
+        total = int(np.unpackbits(mask_header_slots(fused).view(np.uint8))
+                    .sum())
+        if total != rep.scan_counts[qi]:
+            raise AssertionError(f"scan {qi}: {total} keys, replay counted "
+                                 f"{rep.scan_counts[qi]}")
+
+
+def main_path(kp, n_ops) -> dict:
+    """Four replays at full width on 16 chips, each path's launch counts
+    set to 0 just before it and read just after it; returns the launches
+    by kernel summed over the paths."""
+    n_chips = 16
+
+    def ycsb(**kw):
+        return generate(n_ops, n_key_pages=kp, alpha=0.9, seed=1, **kw)
+
+    ycsb_b = ycsb(read_ratio=0.95)
+    paths = [
+        ("YCSB-B split", ycsb_b, RunConfig(burst=64)),
+        ("YCSB-B fused", ycsb_b, RunConfig(burst=64, fused=True)),
+        ("YCSB-E scans fused", ycsb(read_ratio=0.0, scan_ratio=0.95,
+                                    max_scan_len=100),
+         RunConfig(burst=64, fused=True)),
+        ("YCSB-A write buffer fused", ycsb(read_ratio=0.5),
+         RunConfig(burst=64, fused=True, write_buffer=True,
+                   write_high_water=16)),
+    ]
+    launches = {k: 0 for k in native.LAUNCHES}
+    reports, peaks = {}, []
+    for label, wl, config in paths:
+        rep, grew, backend, peak = run_replay(label, wl, kp, n_chips, config)
+        peaks.append(peak)
+        check_replay(label, wl, rep, grew, config, kp)
+        if rep.n_scans:
+            check_scan_plans(backend, wl, rep, kp, 200)
+        del backend
+        reports[label] = rep
+        for k in launches:
+            launches[k] += grew[k]
+    split, fused = reports["YCSB-B split"], reports["YCSB-B fused"]
+    if not (np.array_equal(split.read_values, fused.read_values)
+            and np.array_equal(split.read_hits, fused.read_hits)):
+        raise AssertionError("YCSB-B split and fused replays disagree")
+    for k, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"{k} never launched on the main path")
+    log(f"peak device memory {max(peaks)} bytes (the largest path's)")
+    log("replays: read values and scan counts equal the numpy oracle, all "
+        "reads hit, YCSB-B split and fused agree, launches by kernel add up "
+        "to kernel_launches, one sim_plan launch a scan, fused launches == "
+        "flushes, the first 200 scans' PLAN bitmaps equal the per-pass "
+        "searches")
+    return launches
 
 
 def main(argv=None) -> int:
@@ -394,40 +630,8 @@ def main(argv=None) -> int:
     # 2. Kernel checks (these launches are not the main path's).
     rows = kernel_checks(dev)
 
-    # 3. The main path: split and fused YCSB-B replays on the card.
-    n_chips = 16
-    wl = generate(args.n_ops, n_key_pages=args.key_pages, read_ratio=0.95,
-                  alpha=0.9, seed=1)
-    want = oracle(wl, args.key_pages)
-    reads = wl.ops == 0
-    torch.cuda.reset_peak_memory_stats()
-    native.reset_launches()
-    split, grew_split = run_replay(wl, args.key_pages, n_chips, fused=False)
-    fused, grew_fused = run_replay(wl, args.key_pages, n_chips, fused=True)
-    launches = dict(native.LAUNCHES)
-    log(f"peak device memory {torch.cuda.max_memory_allocated()} bytes; "
-        f"{int(reads.sum())} reads, {int((~reads).sum())} writes")
-    for rep in (split, fused):
-        if not rep.read_hits[reads].all():
-            raise AssertionError("a read missed its key")
-        if not np.array_equal(rep.read_values[reads], want[reads]):
-            raise AssertionError("read values differ from the numpy oracle")
-    if not (np.array_equal(split.read_values, fused.read_values)
-            and np.array_equal(split.read_hits, fused.read_hits)):
-        raise AssertionError("split and fused replays disagree")
-    if fused.kernel_launches != fused.flushes:
-        raise AssertionError(f"fused: {fused.kernel_launches} launches for "
-                             f"{fused.flushes} flushes")
-    if (grew_split["sim_search"] + grew_split["sim_gather"]
-            != split.kernel_launches
-            or grew_fused["sim_lookup"] != fused.kernel_launches):
-        raise AssertionError("kernel launch counts disagree with the "
-                             "backend's kernel_launches")
-    for k, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"{k} never launched on the main path")
-    log("replay: read values equal the numpy oracle, all reads hit, split "
-        "and fused agree, fused launches == flushes")
+    # 3. The main path.
+    launches = main_path(args.key_pages, args.n_ops)
 
     # 4. Kernels line.
     print(json.dumps({"kernels": [

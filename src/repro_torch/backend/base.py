@@ -8,9 +8,9 @@ read burst into one device operation instead of a per-page command storm
 The port so far implements one backend, ``BatchedKernelBackend``
 (batched.py): stored pages stay device resident in a ``PlaneStore`` arena
 (planestore.py), queued searches run as one ``sim_search`` launch, queued
-gathers as one ``sim_gather`` launch and queued lookups as one fused
-lookup launch, with the per-page randomization stream regenerated
-in-kernel.
+gathers as one ``sim_gather`` launch, queued range plans as one
+``sim_plan`` launch and queued lookups as one fused lookup launch, with
+the per-page randomization stream regenerated in-kernel.
 
 The write path is deferred: ``submit_program`` queues a full-page entry
 image; repeated programs of one page within a burst coalesce last-wins and
@@ -53,9 +53,9 @@ class BackendStats:
     programs_coalesced: int = 0  # queued programs absorbed by a later
                                # program of the same page before the flush
     result_bytes: int = 0      # exact device->host result payload: 64 B per
-                               # search bitmap (per unique launch cell),
-                               # 64 B per gathered chunk, 64 B bitmap + 64 B
-                               # value chunk (on hit) per lookup
+                               # search or plan bitmap (per unique launch
+                               # cell), 64 B per gathered chunk, 64 B bitmap
+                               # + 64 B value chunk (on hit) per lookup
 
 
 class LazyResultBatch:
@@ -149,7 +149,7 @@ class MatchBackend(abc.ABC):
 
     def enable_reliability(self, state) -> None:
         raise NotImplementedError(
-            "the reliability tier is not ported yet (slice 6 of the port)")
+            "the reliability tier is not ported yet (slice 8 of the port)")
 
     # ------------------------------------------------------------- storage
     def program_entries(self, page_addr: int, entries, **kw):
@@ -245,8 +245,8 @@ class MatchBackend(abc.ABC):
 
 # Backends of the JAX package that the port has not reached yet, and the
 # slice of the port (ROADMAP.md) that brings each.
-_LATER = {"scalar": "the scalar reference backend (slice 3 of the port)",
-          "sharded": "the sharded SSD backend (slice 5 of the port)"}
+_LATER = {"scalar": "the scalar reference backend (slice 5 of the port)",
+          "sharded": "the sharded SSD backend (slice 7 of the port)"}
 
 
 def make_backend(name: str, chips: SimChipArray, **kw) -> MatchBackend:

@@ -23,7 +23,13 @@ At flush time the deferred queues stage into dense device operands:
     the selected chunks happen host-side, batched over the whole burst;
   * queued lookups (Op.LOOKUP) run the fused lookup kernel: key-page
     search, first-matching-user-slot selection, and the paired value page's
-    same-slot chunk gather all happen in ONE launch.
+    same-slot chunk gather all happen in ONE launch;
+  * queued plans (Op.PLAN) run the fused ``sim_plan`` kernel: every
+    include/exclude pass of a §V-C range decomposition matches on the card
+    and the OR/AND-NOT combine (paper Fig 10) happens before anything
+    leaves it — ONE 64 B bitmap per (plan, page) instead of one per pass.
+    Unique (include, exclude) tuples dedup to plan groups the way unique
+    (query, mask) pairs dedup to query rows.
 
 Ticket resolution is *lazy*: each flush phase dispatches its launch and
 attaches a ``LazyResultBatch`` holding the device outputs; the host copy,
@@ -31,15 +37,16 @@ de-randomization and CRC verification run at the first ``result()`` call
 of the burst, and ``BackendStats.result_bytes`` counts exactly what crossed
 device->host.
 
-Query rows are padded to the next power of two and page/gather/lookup rows
-to a power-of-two multiple of the block size (``padded_rows``): the launch
-geometry of the JAX package, kept so raw launch outputs compare equal.
-Padded page rows repeat arena row 0, pad queries (q = 0, m = 0) match
-everything and pad lookups (m = all ones) miss; the counters count real
-rows only.
+Query rows, plan pass rows and plan groups are padded to the next power of
+two and page/gather/lookup rows to a power-of-two multiple of the block
+size (``padded_rows``): the launch geometry of the JAX package, kept so raw
+launch outputs compare equal.  Padded page rows repeat arena row 0, pad
+queries (q = 0, m = 0) match everything, pad plan rows (PASS_PAD) enter
+neither accumulator and pad lookups (m = all ones) miss; the counters count
+real rows only.
 
-Range plans (``submit_plan``) and the reliability tier are later slices of
-the port and raise ``NotImplementedError``.
+The reliability tier is a later slice of the port and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -59,6 +66,8 @@ from repro_torch.kernels.layout import (planes_to_chunk_words,
 from repro_torch.kernels.sim_fused.ops import sim_fused_lookup
 from repro_torch.kernels.sim_fused.ref import NO_SLOT
 from repro_torch.kernels.sim_gather.ops import sim_gather
+from repro_torch.kernels.sim_plan.ops import sim_plan
+from repro_torch.kernels.sim_plan.ref import plan_pass_rows
 from repro_torch.kernels.sim_search.ops import sim_search
 
 from .base import MatchBackend, Ticket
@@ -79,16 +88,19 @@ LOOKUP_BLOCK = 8
 # burst, not at flush.
 # ---------------------------------------------------------------------------
 
-def resolve_search_responses(chips, searches, placements, out) -> int:
-    """Resolve search tickets from launch output.
+def _resolve_bitmap_responses(chips, cmds, placements, out,
+                              matches_of) -> int:
+    """Resolve bitmap-shaped (search / plan) tickets from launch output.
 
-    ``placements[i]`` is the ``(qi, pi)`` cell of command i's bitmap in
+    ``placements[i]`` is the ``(row, pi)`` cell of command i's bitmap in
     ``out``.  Commands that dedup'd into the same launch cell share ONE
     host copy of the bitmap (and its popcount), detached from ``out``.
-    Returns result bytes: 64 B per unique cell (shared cells cross once).
+    ``matches_of(cmd)`` is the on-chip match-op count the command's chip
+    executed (1 for a search, ``n_passes`` for a plan).  Returns result
+    bytes: 64 B per unique cell (shared cells cross once).
     """
     cache: dict[tuple, SearchResponse] = {}
-    for (cmd, ticket), idx in zip(searches, placements):
+    for (cmd, ticket), idx in zip(cmds, placements):
         resp = cache.get(idx)
         if resp is None:
             raw = np.array(out[idx], copy=True)
@@ -96,9 +108,21 @@ def resolve_search_responses(chips, searches, placements, out) -> int:
                 bitmap_words=raw, match_count=int(popcount_words(raw).sum()),
                 open_verdict=OpenVerdict.CLEAN.value)
         chip, _ = chips.route(cmd.page_addr)
-        chip.counters.searches += 1
+        chip.counters.searches += matches_of(cmd)
         ticket._resolve(resp)
     return 64 * len(cache)
+
+
+def resolve_search_responses(chips, searches, placements, out) -> int:
+    return _resolve_bitmap_responses(chips, searches, placements, out,
+                                     lambda cmd: 1)
+
+
+def resolve_plan_responses(chips, plans, placements, out) -> int:
+    """A PLAN's chip executed ``n_passes`` match ops, but only the one
+    combined 64 B bitmap per unique cell crossed — the Fig 10 win."""
+    return _resolve_bitmap_responses(chips, plans, placements, out,
+                                     lambda cmd: cmd.n_passes)
 
 
 def snapshot_parities(chips, addrs) -> dict:
@@ -234,6 +258,7 @@ class BatchedKernelBackend(MatchBackend):
         self._searches: list[tuple[Command, Ticket]] = []
         self._gathers: list[tuple[Command, Ticket]] = []
         self._lookups: list[tuple[Command, Ticket]] = []
+        self._plans: list[tuple[Command, Ticket]] = []
 
     # ------------------------------------------------------------ deferred
     def submit_search(self, cmd: Command) -> Ticket:
@@ -258,14 +283,17 @@ class BatchedKernelBackend(MatchBackend):
         return t
 
     def submit_plan(self, cmd: Command) -> Ticket:
-        raise NotImplementedError(
-            "range plans (Op.PLAN, the sim_plan kernel) are not ported yet: "
-            "slice 2 of the port")
+        if cmd.op is not Op.PLAN or cmd.plan_include is None:
+            raise ValueError(f"not a plan command: {cmd}")
+        t = Ticket(self)
+        self._plans.append((cmd, t))
+        return t
 
     @property
     def pending(self) -> int:
         return (len(self._searches) + len(self._gathers)
-                + len(self._lookups) + self.pending_programs)
+                + len(self._lookups) + len(self._plans)
+                + self.pending_programs)
 
     def flush(self) -> None:
         # Deferred programs first: one grouped chip-program pass, then ONE
@@ -274,7 +302,8 @@ class BatchedKernelBackend(MatchBackend):
         if programs:
             self.store.stage_group(programs)
             self.stats.staged_bytes = self.store.staged_bytes
-        if not (self._searches or self._gathers or self._lookups):
+        if not (self._searches or self._gathers or self._lookups
+                or self._plans):
             if programs:
                 self.stats.flushes += 1
             return
@@ -282,8 +311,11 @@ class BatchedKernelBackend(MatchBackend):
         searches, self._searches = self._searches, []
         lookups, self._lookups = self._lookups, []
         gathers, self._gathers = self._gathers, []
+        plans, self._plans = self._plans, []
         if searches:
             self._flush_searches(searches)
+        if plans:
+            self._flush_plans(plans)
         if lookups:
             self._flush_lookups(lookups)
         if gathers:
@@ -339,6 +371,61 @@ class BatchedKernelBackend(MatchBackend):
             self.stats.result_bytes += resolve_search_responses(
                 self.chips, searches, placements, tensor_to_words(out))
         self._defer_all(searches, tail)
+
+    # ---------------------------------------------------------------- plans
+    def _flush_plans(self, plans) -> None:
+        """Fused multi-pass range plans: one launch, one 64 B bitmap a cell.
+
+        Unique pages dedup to arena rows exactly like searches; unique
+        (include, exclude) pass tuples dedup to plan *groups* (commands
+        sharing both land on the same launch cell).  Pass rows and groups
+        pad to powers of two, page rows to ``padded_rows``.
+        """
+        page_rows: dict[int, int] = {}
+        group_rows: dict[tuple, int] = {}
+        addrs: list[int] = []
+        groups: list[tuple] = []
+        placements = []                        # (gi, pi) per command
+        for cmd, _ in plans:
+            if cmd.page_addr not in page_rows:
+                page_rows[cmd.page_addr] = len(addrs)
+                addrs.append(cmd.page_addr)
+            key = (cmd.plan_include, cmd.plan_exclude)
+            if key not in group_rows:
+                group_rows[key] = len(groups)
+                groups.append(key)
+            placements.append((group_rows[key], page_rows[cmd.page_addr]))
+
+        rows = self.store.rows_for(addrs)
+        for a in addrs:                        # one staged sense per page,
+            chip, _ = self.chips.route(a)      # amortized over every pass
+            chip.counters.array_reads += 1
+
+        n_pages = padded_rows(len(addrs), PAGE_BLOCK)
+        lo, hi, page_ids, page_seeds = self.store.take(rows, n_pages)
+        n_passes = [len(i) + len(e) for i, e in groups]
+        p_pad = next_pow2(max(max(n_passes), 1))
+        g_pad = next_pow2(len(groups))
+        q = np.zeros((g_pad, p_pad, 2), dtype=np.uint32)
+        m = np.zeros_like(q)
+        f = np.zeros((g_pad, p_pad), dtype=np.uint32)
+        for gi, (inc, exc) in enumerate(groups):
+            q[gi], m[gi], f[gi] = plan_pass_rows(inc, exc, p_pad)
+
+        out = sim_plan(lo, hi, words_to_tensor(q, self.device),
+                       words_to_tensor(m, self.device),
+                       words_to_tensor(f, self.device), page_ids, page_seeds,
+                       randomized=True)        # (Gpad, Npad, 16)
+
+        self.stats.kernel_launches += 1
+        self.stats.staged_pages += len(addrs)
+        self.stats.staged_queries += sum(n_passes)
+        self.stats.plans += len(plans)
+
+        def tail(out=out, plans=plans, placements=placements):
+            self.stats.result_bytes += resolve_plan_responses(
+                self.chips, plans, placements, tensor_to_words(out))
+        self._defer_all(plans, tail)
 
     # -------------------------------------------------------------- lookups
     def _flush_lookups(self, lookups) -> None:

@@ -1,24 +1,28 @@
 """RunConfig: the one validated knob surface of the workload frontend.
 
 The same frozen dataclass as the JAX package's, field for field, so a
-configuration reads the same in both packages.  This slice of the port runs
-the serial replay only:
+configuration reads the same in both packages.  The port runs the serial
+replay only:
 
   * **execution mode** — ``mode="serial"``, the synchronous replay (one
     client, a barrier per burst);
   * **burst shaping** — ``burst`` (max reads coalesced per backend
-    flush), ``fused`` (one fused lookup launch vs split search+gather).
+    flush), ``fused`` (one fused lookup launch vs split search+gather);
+  * **write path** — ``write_buffer``/``write_high_water`` (the §VI DRAM
+    coalescing buffer with deferred grouped programs): ``True`` builds a
+    ``WriteBuffer(high_water=write_high_water)``, or pass one.
 
-The knobs of paths not ported yet — ``mode="event"``, the DRAM
-``write_buffer``, the ``reliability`` tier, device ``faults``, deadlines,
-hedging and shedding — keep their fields, and setting any of them raises
-``NotImplementedError`` at construction, so a config that constructs is a
-config that runs.
+The knobs of paths not ported yet — ``mode="event"``, the ``reliability``
+tier, device ``faults``, deadlines, hedging and shedding — keep their
+fields, and setting any of them raises ``NotImplementedError`` at
+construction, so a config that constructs is a config that runs.
 """
 from __future__ import annotations
 
 import dataclasses
 import typing
+
+from repro_torch.buffer.writebuffer import WriteBuffer
 
 MODES = ("serial", "event")
 ARRIVALS = ("zero", "poisson", "trace")
@@ -26,13 +30,12 @@ SCHEDULERS = ("fifo", "read_priority", "fair_share")
 
 # Knob -> (value that leaves it off, the slice of the port that runs it).
 _NOT_PORTED = {
-    "mode": ("serial", "the event-driven frontend (slice 6 of the port)"),
-    "write_buffer": (False, "the DRAM write buffer (slice 2 of the port)"),
-    "reliability": (None, "the reliability tier (slice 6 of the port)"),
-    "faults": (None, "the device-fault tier (slice 6 of the port)"),
-    "deadline_ns": (None, "deadlines of the event frontend (slice 6)"),
-    "hedge_quantile": (None, "hedged reads of the event frontend (slice 6)"),
-    "shed_capacity": (None, "load shedding of the event frontend (slice 6)"),
+    "mode": ("serial", "the event-driven frontend (slice 8 of the port)"),
+    "reliability": (None, "the reliability tier (slice 8 of the port)"),
+    "faults": (None, "the device-fault tier (slice 8 of the port)"),
+    "deadline_ns": (None, "deadlines of the event frontend (slice 8)"),
+    "hedge_quantile": (None, "hedged reads of the event frontend (slice 8)"),
+    "shed_capacity": (None, "load shedding of the event frontend (slice 8)"),
 }
 
 
@@ -46,7 +49,7 @@ class RunConfig:
     burst: int = 64
     fused: bool = False
     # --- write path (§VI DRAM write buffer)
-    write_buffer: typing.Any = False
+    write_buffer: bool | WriteBuffer = False
     write_high_water: int = 16
     # --- reliability tier
     reliability: typing.Any = None
@@ -103,6 +106,9 @@ class RunConfig:
         if self.backoff_base_ns <= 0:
             raise ValueError(f"backoff_base_ns must be > 0, got "
                              f"{self.backoff_base_ns!r}")
+        if not isinstance(self.write_buffer, (bool, WriteBuffer)):
+            raise ValueError("write_buffer must be a bool or a WriteBuffer, "
+                             f"got {self.write_buffer!r}")
 
     # ------------------------------------------------------------ presets
     @classmethod

@@ -2,11 +2,11 @@
 
 The same nested sections as the JAX package's report — ``latency`` /
 ``energy`` / ``counters`` / ``reliability`` / ``faults`` — so results read
-the same in both packages.  The serial replay of this slice fills the
-counters and the bit-exact per-op outputs; the other sections stay at
-their defaults until the paths that fill them (the timeline-coupled
-sharded backend, the reliability and device-fault tiers, the event
-frontend) are ported.
+the same in both packages.  The serial replay fills the counters and the
+bit-exact per-op outputs (read values and hits, scan counts); the other
+sections stay at their defaults until the paths that fill them (the
+timeline-coupled sharded backend, the reliability and device-fault tiers,
+the event frontend) are ported.
 """
 from __future__ import annotations
 
@@ -119,6 +119,10 @@ class RunReport:
         return self.counters.writes
 
     @property
+    def n_scans(self) -> int:
+        return self.counters.scans
+
+    @property
     def flushes(self) -> int:
         return self.counters.flushes
 
@@ -137,3 +141,11 @@ class RunReport:
     @property
     def programs(self) -> int:
         return self.counters.programs
+
+    @property
+    def write_flushes(self) -> int:
+        return self.counters.write_flushes
+
+    @property
+    def buffer_read_hits(self) -> int:
+        return self.counters.buffer_read_hits

@@ -42,9 +42,12 @@ SIGNATURES = {
     "sim_gather_launch": (_P, _P, _P, _P, _I, _I, _I, _P),
     "sim_lookup_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                           _I, _P),
+    "sim_plan_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _P),
 }
 
-LAUNCHES = {"sim_search": 0, "sim_gather": 0, "sim_lookup": 0}
+LAUNCHES = {"sim_search": 0, "sim_gather": 0, "sim_lookup": 0,
+            "sim_plan": 0}
 
 
 def reset_launches() -> None:

@@ -266,6 +266,20 @@ def test_no_device_means_cuda_and_raises_without_a_card(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_plan_path_queues_and_resolves():
+    """Range plans are ported: a plan queues, flushes as one ``sim_plan``
+    launch and resolves to one combined bitmap a page."""
+    be = make_backend("batched", SimChipArray(2, 4), device="cpu")
+    be.program_entries(1, np.arange(10, 20, dtype=np.uint64))
+    t = be.submit_plan(Command.plan(1, [(12, 2**64 - 2)], [(13, 2**64 - 1)]))
+    assert be.pending == 1
+    be.flush()
+    assert be.stats.plans == be.stats.kernel_launches == 1
+    # 12 and 13 share the prefix; 13 is excluded: only slot 8 + 2 is left.
+    assert t.result().match_count == 1
+    assert (int(t.result().bitmap_words[0]) >> 10) & 1
+
+
 @pytest.mark.parametrize("name", ["scalar", "sharded"])
 def test_unported_backends_raise_not_implemented(name):
     with pytest.raises(NotImplementedError, match="slice"):
@@ -274,9 +288,7 @@ def test_unported_backends_raise_not_implemented(name):
 
 def test_unported_paths_raise_not_implemented():
     be = make_backend("batched", SimChipArray(2, 4), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        be.submit_plan(Command.plan(0, [(1, 2**64 - 1)]))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="slice 8"):
         be.enable_reliability(object())
     with pytest.raises(ValueError):
         make_backend("nonesuch", SimChipArray(2, 4), device="cpu")

@@ -12,7 +12,10 @@ import pytest
 import torch
 
 from repro_torch.backend import make_backend
+from repro_torch.core.commands import Command
 from repro_torch.core.engine import SimChipArray
+from repro_torch.core.range_query import (RangePlan, approximate_range,
+                                          exact_range)
 from repro_torch.frontend import RunConfig, replay
 from repro_torch.kernels import native
 from repro_torch.kernels.layout import words_to_tensor
@@ -20,6 +23,8 @@ from repro_torch.kernels.sim_fused.ops import sim_fused_lookup
 from repro_torch.kernels.sim_fused.ref import sim_lookup_ref
 from repro_torch.kernels.sim_gather.ops import sim_gather
 from repro_torch.kernels.sim_gather.ref import sim_gather_ref
+from repro_torch.kernels.sim_plan.ops import sim_plan
+from repro_torch.kernels.sim_plan.ref import plan_pass_rows, sim_plan_ref
 from repro_torch.kernels.sim_search.ops import sim_search
 from repro_torch.kernels.sim_search.ref import sim_search_ref, stream_planes
 from repro_torch.workload.ycsb import generate
@@ -116,6 +121,83 @@ def test_sim_lookup_kernel_matches_plain(n_rows):
         plain = sim_lookup_ref(*args, randomized=randomized)
         np.testing.assert_array_equal(plain[2].cpu().numpy(), want)
         _check_equal(got, plain)
+
+
+def _plan_groups(keys, rng, p_pad):
+    """Four plan groups over the (N, 512) 64-bit domain keys: an exact
+    range (as wide as ``p_pad`` passes allow) holding page 0's slots
+    100..163, with an exclude block on slot 102; a group of exclude passes
+    only; an approximate range; and an all-PAD group."""
+    base = int(rng.integers(2**41, 2**47))
+    keys[0, 100:164] = base + np.arange(64, dtype=np.uint64)
+    exc = exact_range(base + 2, base + 3)
+    wide = (base - int(rng.integers(2**39, 2**40)),
+            base + int(rng.integers(2**39, 2**40)))
+    for lo, hi in [wide, (base + 1, base + 49), (base + 1, base + 13),
+                   (base + 1, base + 4)]:
+        inc = exact_range(lo, hi)
+        if inc.n_passes + exc.n_passes <= p_pad:
+            break
+    return [RangePlan(inc.include, exc.include),
+            RangePlan((), exact_range(base, base + 4).include),
+            approximate_range(base, base + 40), RangePlan(())]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_pages,p_pad", [(32, 16), (64, 128), (70, 8),
+                                           (1, 4)])
+def test_sim_plan_kernel_matches_plain(n_pages, p_pad):
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(n_pages * 7 + p_pad)
+    keys = rng.integers(1, 2**48, (n_pages, 512), dtype=np.uint64)
+    plans = _plan_groups(keys, rng, p_pad)
+    q = np.zeros((len(plans), p_pad, 2), np.uint32)
+    m, f = np.zeros_like(q), np.zeros((len(plans), p_pad), np.uint32)
+    for g, plan in enumerate(plans):
+        cmd = Command.plan(0, plan.include, plan.exclude)
+        q[g], m[g], f[g] = plan_pass_rows(cmd.plan_include,
+                                          cmd.plan_exclude, p_pad)
+    ids = rng.integers(0, 4096, n_pages).astype(np.uint32)
+    seeds = _u32(rng, (n_pages,))
+    want = np.stack([plan.evaluate(keys) for plan in plans])
+    assert want[0, 0, 101] and not want[0, 0, 102]  # include, exclude
+    for randomized in (False, True):
+        s_lo, s_hi = _stream(ids, seeds) if randomized else (0, 0)
+        lo = (keys & 0xFFFFFFFF).astype(np.uint32) ^ s_lo
+        hi = (keys >> np.uint64(32)).astype(np.uint32) ^ s_hi
+        args = [words_to_tensor(a, dev) for a in (lo, hi, q, m, f, ids,
+                                                  seeds)]
+        before = native.LAUNCHES["sim_plan"]
+        got = sim_plan(*args, randomized=randomized)
+        torch.cuda.synchronize()
+        assert native.LAUNCHES["sim_plan"] == before + 1
+        plain = sim_plan_ref(*args, randomized=randomized)
+        bits = np.unpackbits(plain.cpu().numpy().view(np.uint8),
+                             axis=-1, bitorder="little").astype(bool)
+        np.testing.assert_array_equal(bits, want)
+        _check_equal([got], [plain])
+
+
+@pytest.mark.gpu
+def test_scan_replay_on_card_matches_cpu():
+    _cuda_or_skip()
+    wl = generate(300, n_key_pages=8, read_ratio=0.5, alpha=0.9, seed=5,
+                  scan_ratio=0.3, max_scan_len=100)
+    reports, plans = {}, {}
+    for device in (None, "cpu"):               # None: the card
+        arr = SimChipArray(n_chips=4, pages_per_chip=8, device_seed=2)
+        before = native.LAUNCHES["sim_plan"]
+        reports[device] = replay(wl, make_backend("batched", arr,
+                                                  device=device),
+                                 RunConfig(burst=32, fused=True))
+        plans[device] = native.LAUNCHES["sim_plan"] - before
+    card, cpu = reports[None], reports["cpu"]
+    assert card.n_scans == int((wl.ops == 2).sum()) > 0
+    assert plans == {None: card.n_scans, "cpu": 0}
+    np.testing.assert_array_equal(card.scan_counts, cpu.scan_counts)
+    np.testing.assert_array_equal(card.read_values, cpu.read_values)
+    assert (card.kernel_launches, card.staged_bytes, card.result_bytes) == \
+        (cpu.kernel_launches, cpu.staged_bytes, cpu.result_bytes)
 
 
 @pytest.mark.gpu

@@ -22,6 +22,7 @@ from repro_torch.kernels.layout import (pages_to_chunk_words,
                                         tensor_to_words, words_to_tensor)
 from repro_torch.kernels.sim_fused.ops import sim_fused_lookup
 from repro_torch.kernels.sim_gather.ops import sim_gather
+from repro_torch.kernels.sim_plan.ops import sim_plan
 from repro_torch.kernels.sim_search.ops import sim_search
 
 CPU = torch.device("cpu")
@@ -152,8 +153,11 @@ def test_cpu_tensors_never_launch():
                randomized=True)
     sim_gather(_t(np.zeros((2, 64, 16), np.uint32)),
                _t(np.ones((2, 2), np.uint32)), max_out=4)
+    sim_plan(_t(lo), _t(hi), _t(q[None]), _t(m[None]),
+             _t(np.ones((1, 2), np.uint32)), _t(ids), _t(seeds),
+             randomized=True)
     assert native.LAUNCHES == {"sim_search": 0, "sim_gather": 0,
-                               "sim_lookup": 0}
+                               "sim_lookup": 0, "sim_plan": 0}
 
 
 def test_wrappers_refuse_other_devices():
