@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py              # the full run, from the repo root
 
@@ -7,22 +7,34 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
 1. Device: the card's name and power limit, and the time to build the
    CUDA kernels from ``src/repro_torch/kernels/csrc``.
 2. Kernel checks: each kernel against its plain PyTorch version on the
-   card, bit-exact, on inputs with planted hits, with CUDA-event times
-   per launch for both and the kernel's bound at the timed shapes.
+   card — the SiM kernels bit-exact on inputs with planted hits, flash
+   attention within 2e-6 (float32) and 2e-2 (bfloat16) — with CUDA-event
+   times per launch for both, the kernel's bound at the timed shapes and,
+   for attention, PyTorch's ``scaled_dot_product_attention`` as the
+   library yardstick (timed only; the port never calls it).
 3. Replays through ``repro_torch.frontend.replay`` on the ``batched``
    backend, each checked against a numpy oracle of serial semantics:
    YCSB-B split and fused (they must also agree), YCSB-E range scans
    (fused, one ``sim_plan`` launch a scan; the first scans are also held
    against the per-pass search path) and YCSB-A through the §VI DRAM write
-   buffer (fused).  The launch counts, set to 0 before each path and read
-   after it, show which kernels ran on that path.
-4. One JSON line of the kernels, their launches and times.
-5. The card's ``nvidia-smi`` name and power limit, then the last line:
+   buffer (fused).
+4. The quickstart (``repro_torch.quickstart.main``) on the card: the
+   ``sim_search`` and cross-product ``sim_fused`` kernels, held against
+   the same run on the CPU's plain versions.
+5. Serving qwen3-4b at full width and depth with the SiM-paged KV cache
+   (``repro_torch.launch.serve.serve``): every attention of prefill and
+   decode through the flash attention kernel, the block table's counters
+   recounted from the requests, a paged sequence gathered back bit for bit,
+   and first-token logits held against the plain attention.
+6. One JSON line of the kernels, their launches and times.
+7. The card's ``nvidia-smi`` name and power limit, then the last line:
    ``{"ok": true, "device": {...}}``.
 
-The default scale is 20% of the paper's 650 MiB index: 16,384 key pages
-and 16,384 value pages of 4 KiB on 16 chips, for every path.
-``--key-pages`` and ``--n-ops`` cut it for a quick check.
+The launch counts are set to 0 just before each path of phases 3–5 and
+read just after it; they show which kernels ran on that path.  The replay
+scale is 20% of the paper's 650 MiB index: 16,384 key pages and 16,384
+value pages of 4 KiB on 16 chips, for every replay path.  ``--key-pages``
+and ``--n-ops`` cut it for a quick check.
 """
 from __future__ import annotations
 
@@ -38,7 +50,9 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch import quickstart  # noqa: E402
 from repro_torch.backend import BatchedKernelBackend  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.commands import Command  # noqa: E402
 from repro_torch.core.engine import SimChipArray  # noqa: E402
 from repro_torch.core.page import mask_header_slots  # noqa: E402
@@ -48,10 +62,15 @@ from repro_torch.core.range_query import (RangePlan,  # noqa: E402
                                           evaluate_plan_per_pass, exact_range)
 from repro_torch.frontend import RunConfig, replay  # noqa: E402
 from repro_torch.kernels import native  # noqa: E402
-from repro_torch.kernels.layout import (tensor_to_words,  # noqa: E402
-                                        words_to_tensor)
-from repro_torch.kernels.sim_fused.ops import sim_fused_lookup  # noqa: E402
-from repro_torch.kernels.sim_fused.ref import sim_lookup_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    flash_attention)
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.layout import (planes_to_chunk_words,  # noqa: E402
+                                        tensor_to_words, words_to_tensor)
+from repro_torch.kernels.sim_fused.ops import (sim_fused,  # noqa: E402
+                                               sim_fused_lookup)
+from repro_torch.kernels.sim_fused.ref import (sim_fused_ref,  # noqa: E402
+                                               sim_lookup_ref)
 from repro_torch.kernels.sim_gather.ops import sim_gather  # noqa: E402
 from repro_torch.kernels.sim_gather.ref import sim_gather_ref  # noqa: E402
 from repro_torch.kernels.sim_plan.ops import sim_plan  # noqa: E402
@@ -60,6 +79,10 @@ from repro_torch.kernels.sim_plan.ref import (plan_pass_rows,  # noqa: E402
 from repro_torch.kernels.sim_search.ops import sim_search  # noqa: E402
 from repro_torch.kernels.sim_search.ref import (sim_search_ref,  # noqa: E402
                                                 stream_planes)
+from repro_torch.launch.serve import requests, serve  # noqa: E402
+from repro_torch.models.model import prefill  # noqa: E402
+from repro_torch.serve.batching import Request, ServeEngine  # noqa: E402
+from repro_torch.serve.kvcache import PagedStats, SimPagedKVCache  # noqa: E402
 from repro_torch.workload.ycsb import KEYS_PER_PAGE, generate  # noqa: E402
 
 # H100 SXM peaks at the 700 W power limit: HBM3 at 3.35 TB/s (NVIDIA data
@@ -69,6 +92,10 @@ from repro_torch.workload.ycsb import KEYS_PER_PAGE, generate  # noqa: E402
 # boost.  Integer multiplies are counted at the same rate.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# Dense tensor-core peaks of the H100 SXM (NVIDIA data sheet): the bound of
+# an attention launch counts its multiply-adds at the rate of its type.
+BF16_FLOPS_PER_S = 989e12
+F32_FLOPS_PER_S = 67e12          # float32 outside the tensor cores
 # 32-bit operations of the §IV-C1 stream for one slot: counter (3) + two
 # mix2_32 of 17 each + XOR into the lo and hi words (2).
 STREAM_OPS = 39
@@ -87,7 +114,23 @@ KERNELS = {
                    "src/repro/kernels/sim_fused/sim_fused.py:175"),
     "sim_plan": (f"{SRC}/sim_plan.cu",
                  "src/repro/kernels/sim_plan/sim_plan.py:49"),
+    "sim_fused": (f"{SRC}/sim_fused.cu",
+                  "src/repro/kernels/sim_fused/sim_fused.py:95"),
+    "flash_attention": (
+        f"{SRC}/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:31"),
 }
+REPLAY_KERNELS = ("sim_search", "sim_gather", "sim_lookup", "sim_plan")
+# Bounds of the full serve run: a prompt of 4-16 tokens and at most 12 new
+# ones keep every position below 28 of the 128-slot cache.
+SERVE_ARCH, SERVE_CACHE_LEN = "qwen3-4b", 128
+# Tolerance of the first-token logits of the served model against the same
+# prefill with the plain attention: relative L2 error over the real
+# vocabulary.  Both sum in float32 (in different orders) and round each
+# attention output to bf16; where the two roundings differ (by one bf16 ulp,
+# 2^-8 relative) the difference is carried through the bf16 residual stream
+# and compounds over 36 layers of random weights.
+LOGITS_REL_TOL = 5e-2
 
 
 def log(msg: str) -> None:
@@ -338,6 +381,168 @@ def plan_bound(flags, n_pages):
     return ops, nbytes
 
 
+def fused_case(dev, n_pages, n_queries, seed):
+    """Random planes of N pages spread over 16 chips (page i at address
+    i % (N / 16) on chip i // (N / 16), seed 7 + chip), with planted hits in
+    the randomized domain: even queries match one (page, slot) under a full
+    mask, odd ones a 4-bit mask of the lo word (about 26 chunks a page, past
+    ``max_out``), and the last has mask 0, which selects all 64 chunks of
+    every page.  Returns the operands and the planted cells."""
+    rng = np.random.default_rng(seed)
+    lo, hi = u32(rng, (n_pages, 512)), u32(rng, (n_pages, 512))
+    per_chip = max(n_pages // 16, 1)
+    ids = (np.arange(n_pages) % per_chip).astype(np.uint32)
+    seeds = (7 + np.arange(n_pages) // per_chip).astype(np.uint32)
+    s_lo, s_hi = stream_np(ids, seeds)
+    q, m = u32(rng, (n_queries, 2)), u32(rng, (n_queries, 2))
+    planted = []
+    for i in range(n_queries - 1):
+        if i % 2 == 0:
+            p, s = int(rng.integers(n_pages)), int(rng.integers(512))
+            q[i] = [lo[p, s] ^ s_lo[p, s], hi[p, s] ^ s_hi[p, s]]
+            m[i] = [0xFFFFFFFF, 0xFFFFFFFF]
+            planted.append((i, p, s))
+        else:
+            m[i] = [0xF, 0]
+    q[-1], m[-1] = 0, 0
+    return ([words_to_tensor(a, dev) for a in (lo, hi, q, m, ids, seeds)],
+            planted)
+
+
+def check_fused_hits(plain, args, planted, max_out):
+    """The plain version holds the planted hits, their chunks gathered as
+    stored; the mask-0 query counts 64 chunks on every page and gathers
+    chunks 0..max_out-1; the 4-bit masks overflow ``max_out``."""
+    bm, out, cnt = (tensor_to_words(t) for t in plain)
+    cnt = cnt.view(np.int32)
+    chunks = tensor_to_words(planes_to_chunk_words(args[0], args[1]))
+    for i, p, s in planted:
+        if not (int(bm[i, p, s // 32]) >> (s % 32)) & 1:
+            raise AssertionError(f"planted fused hit {(i, p, s)} missing")
+        rows = out[i, p, :min(int(cnt[i, p]), max_out)]
+        if not (rows == chunks[p, s // 8]).all(axis=1).any():
+            raise AssertionError(f"planted fused hit {(i, p, s)}: its chunk "
+                                 "was not gathered")
+    if not ((cnt[-1] == 64).all()
+            and np.array_equal(out[-1], chunks[:, :max_out])):
+        raise AssertionError("the mask-0 query did not select and gather "
+                             "every chunk")
+    if cnt.shape[0] > 2 and not (cnt[1] > max_out).any():
+        raise AssertionError("no fused cell overflowed max_out")
+
+
+def fused_bound(n_pages, n_queries, max_out):
+    cells = n_queries * n_pages
+    ops = (n_pages * 512 * STREAM_OPS + cells * 512 * MATCH_OPS
+           + cells * (16 + 64 * 3))       # ballots; chunk test, rank, compare
+    nbytes = (2 * n_pages * 512 * 4 + 2 * n_pages * 4 + 2 * n_queries * 2 * 4
+              + cells * (16 * 4 + max_out * 64 + 4))
+    return ops, nbytes
+
+
+# (label, dtype, (B, Sq, Sk, H, Hkv, D), masks): qwen3-4b's prefill and
+# decode shapes on the serve path, and the JAX package's sweep shape.
+ATTN_CASES = [
+    ("qwen3-4b prefill", torch.bfloat16, (1, 16, 16, 32, 8, 128),
+     dict(causal=True)),
+    ("qwen3-4b decode, q_offset 5", torch.bfloat16, (1, 1, 128, 32, 8, 128),
+     dict(causal=True, q_offset=5)),
+    ("qwen3-4b decode, q_offset 127", torch.bfloat16,
+     (1, 1, 128, 32, 8, 128), dict(causal=True, q_offset=127)),
+] + [(f"sweep {dt} {name}", dt, (2, 256, 256, 4, 2, 64), kw)
+     for dt in (torch.float32, torch.bfloat16)
+     for name, kw in (("causal", dict(causal=True)),
+                      ("non-causal", dict(causal=False)),
+                      ("window 128", dict(causal=True, window=128)))]
+# Timed for the kernels line: a decode step of the serve path, whose
+# positions run from 4 to 27 in a 128-slot cache.
+ATTN_TIMED = ("qwen3-4b decode, q_offset 16", torch.bfloat16,
+              (1, 1, 128, 32, 8, 128), dict(causal=True, q_offset=16))
+ATTN_TOL = {torch.float32: 2e-6, torch.bfloat16: 2e-2}
+
+
+def attn_inputs(dev, dtype, shape, seed):
+    b, sq, sk, h, hkv, d = shape
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=(b, s, n, d)).astype(np.float32))
+            .to(dev, dtype) for s, n in ((sq, h), (sk, hkv), (sk, hkv))]
+
+
+def attn_keep(shape, kw):
+    """(Sq, Sk) bool: which keys each query row sees."""
+    _, sq, sk = shape[:3]
+    q_offset = kw.get("q_offset", sk - sq)
+    row = q_offset + np.arange(sq)[:, None]
+    col = np.arange(sk)[None, :]
+    keep = np.ones((sq, sk), bool)
+    if kw.get("causal", True):
+        keep &= col <= row
+    if kw.get("window") is not None:
+        keep &= col > row - kw["window"]
+    return keep
+
+
+def attn_bound(dtype, shape, kw):
+    """The multiply-adds of the visible (query, key) pairs of QK^T and PV at
+    the dtype's peak, against q and the output once and the k/v rows some
+    row sees once."""
+    b, sq, sk, h, hkv, d = shape
+    keep = attn_keep(shape, kw)
+    es = torch.finfo(dtype).bits // 8
+    flops = 4 * b * h * int(keep.sum()) * d
+    nbytes = es * (2 * b * h * sq * d + 2 * b * hkv * int(keep.any(0).sum())
+                   * d)
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def sdpa(q, k, v, shape, kw):
+    """PyTorch's fused attention on the same inputs and masks (the library
+    yardstick; the port never calls it)."""
+    sq, sk = shape[1], shape[2]
+    plain_causal = kw.get("causal", True) and kw.get("window") is None \
+        and kw.get("q_offset", sk - sq) == 0 and sq == sk
+    mask = None
+    if not plain_causal and not attn_keep(shape, kw).all():
+        mask = torch.from_numpy(attn_keep(shape, kw)).to(q.device)
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, is_causal=plain_causal, enable_gqa=True)
+
+
+def attention_checks(dev) -> dict:
+    """Flash attention against its plain version at every case, within
+    ATTN_TOL; times of kernel, plain version and library at each case."""
+    err = 0.0
+    for i, (label, dtype, shape, kw) in enumerate(ATTN_CASES + [ATTN_TIMED]):
+        q, k, v = attn_inputs(dev, dtype, shape, i)
+        got = flash_attention(q, k, v, **kw).float()
+        plain = attention_ref(q, k, v, **kw).float()
+        lib = sdpa(q, k, v, shape, kw).transpose(1, 2).float()
+        tol = ATTN_TOL[dtype]
+        diff = (got - plain).abs()
+        if not (diff <= tol + tol * plain.abs()).all():
+            raise AssertionError(f"flash_attention [{label}]: max abs err "
+                                 f"{float(diff.max())} beyond {tol}")
+        if not torch.isfinite(got).all() or float(plain.abs().max()) == 0:
+            raise AssertionError(f"flash_attention [{label}]: bad output")
+        err = max(err, float(diff.max()))
+        row = dict(
+            ms=device_ms(lambda: flash_attention(q, k, v, **kw), 100),
+            plain_ms=device_ms(lambda: attention_ref(q, k, v, **kw), 20),
+            library_ms=device_ms(lambda: sdpa(q, k, v, shape, kw), 100),
+            bound=attn_bound(dtype, shape, kw))
+        log(f"kernel flash_attention [{label}, {tuple(shape)}]: max abs err "
+            f"{float(diff.max()):.3e} (tol {tol}), library max abs err "
+            f"{float((lib - plain).abs().max()):.3e}; {row['ms']:.6f} "
+            f"ms/launch, plain {row['plain_ms']:.6f} ms, library "
+            f"{row['library_ms']:.6f} ms, bound {row['bound'][0]:.6f} ms "
+            f"({row['bound'][1]})")
+    return dict(max_abs_err=err, shape=ATTN_TIMED[0], **row)
+
+
 def bound(ops, nbytes):
     t_ops, t_bytes = ops / INT32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
@@ -423,6 +628,32 @@ def kernel_checks(dev) -> dict:
         shape="replay scan: G=1, P=16, N=32, randomized, planted hits",
         work=timed["work"])
 
+    err = 0
+    for n_pages, n_queries, max_out in ((64, 8, 16), (17, 3, 4), (5, 2, 64)):
+        args, planted = fused_case(dev, n_pages, n_queries,
+                                   n_pages + n_queries)
+        kw = dict(max_out=max_out, randomized=True, page_ids=args[4],
+                  page_seeds=args[5])
+        plain = sim_fused_ref(*args, max_out=max_out, randomized=True)
+        check_fused_hits(plain, args, planted, max_out)
+        err = max(err, max_abs_err(sim_fused(*args[:4], **kw), plain))
+    args, planted = fused_case(dev, 2048, 64, 11)
+    kw = dict(max_out=16, randomized=True, page_ids=args[4],
+              page_seeds=args[5])
+    plain = sim_fused_ref(*args, max_out=16, randomized=True)
+    check_fused_hits(plain, args, planted, 16)
+    err = max(err, max_abs_err(sim_fused(*args[:4], **kw), plain))
+    del plain
+    rows["sim_fused"] = dict(
+        max_abs_err=err,
+        ms=device_ms(lambda: sim_fused(*args[:4], **kw), 20),
+        plain_ms=device_ms(lambda: sim_fused_ref(*args, max_out=16,
+                                                 randomized=True), 3),
+        shape="Q=64 x N=2048 (8 MiB of planes, 16 chips), max_out=16, "
+              "randomized, planted hits, one mask-0 query",
+        bound=bound(*fused_bound(2048, 64, 16)))
+    del args
+
     for name, r in rows.items():
         if r["max_abs_err"] != 0:
             raise AssertionError(f"{name}: kernel differs from its plain "
@@ -430,6 +661,11 @@ def kernel_checks(dev) -> dict:
         log(f"kernel {name} [{r['shape']}]: bit-exact vs plain; "
             f"{r['ms']:.6f} ms/launch, plain {r['plain_ms']:.6f} ms, "
             f"bound {r['bound'][0]:.6f} ms ({r['bound'][1]})")
+    rows["flash_attention"] = r = attention_checks(dev)
+    log(f"kernel flash_attention [{r['shape']}]: within tolerance of plain "
+        f"(max abs err {r['max_abs_err']:.3e}); {r['ms']:.6f} ms/launch, "
+        f"plain {r['plain_ms']:.6f} ms, library {r['library_ms']:.6f} ms, "
+        f"bound {r['bound'][0]:.6f} ms ({r['bound'][1]})")
     return rows
 
 
@@ -590,9 +826,9 @@ def main_path(kp, n_ops) -> dict:
     if not (np.array_equal(split.read_values, fused.read_values)
             and np.array_equal(split.read_hits, fused.read_hits)):
         raise AssertionError("YCSB-B split and fused replays disagree")
-    for k, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"{k} never launched on the main path")
+    for k in REPLAY_KERNELS:
+        if launches[k] == 0:
+            raise AssertionError(f"{k} never launched on the replay paths")
     log(f"peak device memory {max(peaks)} bytes (the largest path's)")
     log("replays: read values and scan counts equal the numpy oracle, all "
         "reads hit, YCSB-B split and fused agree, launches by kernel add up "
@@ -600,6 +836,155 @@ def main_path(kp, n_ops) -> dict:
         "flushes, the first 200 scans' PLAN bitmaps equal the per-pass "
         "searches")
     return launches
+
+
+def quickstart_path() -> dict:
+    """The quickstart on the card, its launch counts set to 0 just before
+    and read just after; its outputs must equal the CPU run's (the plain
+    versions) and the known hit and counts."""
+    native.reset_launches()
+    card = quickstart.main()
+    torch.cuda.synchronize()
+    grew = dict(native.LAUNCHES)
+    if (grew["sim_search"], grew["sim_fused"]) != (1, 1) or \
+            sum(grew.values()) != 2:
+        raise AssertionError(f"quickstart launched {grew}")
+    cpu = quickstart.main(device="cpu")
+    if card["hits"] != [(1, 8 + 119)] or \
+            card["fused"][2].tolist() != [0, 1, 0, 0]:
+        raise AssertionError(f"quickstart: hits {card['hits']}, fused "
+                             f"counts {card['fused'][2].tolist()}")
+    same = (card["slot"] == cpu["slot"] and card["key"] == cpu["key"]
+            and np.array_equal(card["search"], cpu["search"])
+            and all(np.array_equal(a, b)
+                    for a, b in zip(card["fused"], cpu["fused"])))
+    if not same:
+        raise AssertionError("quickstart on the card differs from the plain "
+                             "versions on the CPU")
+    log(f"quickstart: search hit {card['hits']}, fused chunk counts "
+        f"{card['fused'][2].tolist()}, equal to the plain versions; "
+        f"launches {grew}")
+    return grew
+
+
+def paged_recount(reqs, completions, page_tokens) -> PagedStats:
+    """The block table's counters from the requests alone: every written
+    position (the prompt, then each decode step's input token) is one lookup
+    search; a new 16-token block is one allocation and one table program;
+    retiring is one search, one program and frees every block."""
+    tokens = {c.req_id: len(c.tokens) for c in completions}
+    want = PagedStats()
+    for r in reqs:
+        written = len(r.prompt) + tokens[r.req_id] - 1
+        blocks = -(-written // page_tokens)
+        want.searches += written + 1
+        want.programs += blocks + 1
+        want.pages_allocated += blocks
+        want.pages_freed += blocks
+    return want
+
+
+def check_gather(model, dev) -> None:
+    """A second, small run on the served model and a fresh paged cache: a
+    sequence of 18 positions (two pages) is gathered from the pool and must
+    equal its slot's contiguous cache bit for bit."""
+    cache = SimPagedKVCache(model.cfg, n_pages=256, page_tokens=16,
+                            device=dev)
+    eng = ServeEngine(model, max_slots=1, cache_len=SERVE_CACHE_LEN,
+                      paged_cache=cache)
+    eng.submit(Request(req_id=0, prompt=list(range(100, 114)),
+                       max_new_tokens=8))
+    for _ in range(4):
+        eng.step()
+    slot = eng.slots[0]
+    k, v = cache.gather_sequence(0, slot.position)
+    ck, cv = slot.caches["kv"]
+    if not (slot.position == 18 and torch.equal(k, ck[:, 0, :18])
+            and torch.equal(v, cv[:, 0, :18])):
+        raise AssertionError("gather_sequence differs from the slot cache")
+    eng.run()
+
+
+def check_logits(model, reqs, completions, dev) -> float:
+    """First-token logits of two prompts through the kernel path and through
+    the same prefill with the plain attention; returns the larger relative
+    L2 error, which must be within LOGITS_REL_TOL."""
+    first = {c.req_id: c.tokens[0] for c in completions}
+    worst = 0.0
+    for r in reqs[:2]:
+        tokens = torch.tensor([r.prompt], device=dev)
+        got = prefill(model, tokens, SERVE_CACHE_LEN)[0][0]
+        plain = prefill(model, tokens, SERVE_CACHE_LEN,
+                        attention=attention_ref)[0][0]
+        real = slice(0, model.cfg.vocab_size)
+        if not (torch.isfinite(got[real]).all()
+                and torch.isfinite(plain[real]).all()):
+            raise AssertionError("non-finite first-token logits")
+        rel = float((got[real] - plain[real]).norm() / plain[real].norm())
+        worst = max(worst, rel)
+        log(f"serve check: request {r.req_id} first-token logits vs plain "
+            f"attention: rel L2 err {rel:.3e}, argmax {int(got.argmax())} "
+            f"(served {first[r.req_id]}), plain argmax "
+            f"{int(plain.argmax())}")
+        if int(got.argmax()) != first[r.req_id]:
+            raise AssertionError("the recomputed first token differs from "
+                                 "the served one")
+    if worst > LOGITS_REL_TOL:
+        raise AssertionError(f"first-token logits differ from the plain "
+                             f"attention by {worst:.3e} > {LOGITS_REL_TOL}")
+    return worst
+
+
+def serve_path(dev) -> dict:
+    """qwen3-4b at full width and depth served from the SiM-paged cache with
+    the settings of the JAX package's launch/serve.py, its launch counts
+    set to 0 just before and read just after."""
+    cfg = get_config(SERVE_ARCH)
+    reqs = requests(8, cfg.vocab_size, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launches()
+    t0 = time.perf_counter()
+    completions, engine, cache = serve(SERVE_ARCH, reduced=False, paged=True,
+                                       cache_len=SERVE_CACHE_LEN)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    grew = dict(native.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    model = engine.model
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = sum(len(c.tokens) for c in completions)
+    log(f"serve {SERVE_ARCH} (full: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {n_params} parameters, {cfg.dtype}), paged: wall "
+        f"{wall_s:.3f} s (init and run), run {engine.run_s:.3f} s, "
+        f"{tokens} tokens, {tokens / engine.run_s:.2f} tokens/s; "
+        f"{engine.prefills} prefills, "
+        f"{1e3 * engine.prefill_s / engine.prefills:.3f} ms each; "
+        f"{engine.decodes} decode steps, "
+        f"{1e3 * engine.decode_s / engine.decodes:.3f} ms each; paged "
+        f"{cache.stats}; launches {grew}; peak device memory {peak} bytes")
+
+    done = {c.req_id: c for c in completions}
+    if sorted(done) != [r.req_id for r in reqs] or any(
+            len(done[r.req_id].tokens) != r.max_new_tokens for r in reqs):
+        raise AssertionError("a request did not complete with its "
+                             "max_new_tokens")
+    if grew["flash_attention"] != cfg.n_layers * (engine.prefills
+                                                  + engine.decodes) or \
+            sum(grew.values()) != grew["flash_attention"]:
+        raise AssertionError(f"launches {grew} for {engine.prefills} "
+                             f"prefills and {engine.decodes} decode steps")
+    want = paged_recount(reqs, completions, cache.page_tokens)
+    if cache.stats != want or want.pages_freed != want.pages_allocated:
+        raise AssertionError(f"paged counters {cache.stats}, recount {want}")
+    check_gather(model, dev)
+    rel = check_logits(model, reqs, completions, dev)
+    log(f"serve: every request completed with its max_new_tokens, "
+        f"flash_attention launches = {cfg.n_layers} x (prefills + decode "
+        f"steps), paged counters equal the recount and every page was freed, "
+        f"a gathered sequence equals its slot cache, first-token logits "
+        f"within {rel:.3e} <= {LOGITS_REL_TOL} of the plain attention")
+    return grew
 
 
 def main(argv=None) -> int:
@@ -627,21 +1012,27 @@ def main(argv=None) -> int:
     native.library()
     log(f"kernels built in {time.perf_counter() - t0:.3f} s -> {lib.name}")
 
-    # 2. Kernel checks (these launches are not the main path's).
+    # 2. Kernel checks (these launches are not the main paths').
     rows = kernel_checks(dev)
 
-    # 3. The main path.
+    # 3.-5. The main paths.
     launches = main_path(args.key_pages, args.n_ops)
+    for grew in (quickstart_path(), serve_path(dev)):
+        for k in launches:
+            launches[k] += grew[k]
+    for k in KERNELS:
+        if launches[k] == 0:
+            raise AssertionError(f"{k} never launched on the main paths")
 
-    # 4. Kernels line.
+    # 6. Kernels line.
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],
          "replaces": KERNELS[k][1], "launches": launches[k],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-         "bound_by": r["bound"][1], "library_ms": None}
+         "bound_by": r["bound"][1], "library_ms": r.get("library_ms")}
         for k, r in rows.items()]}), flush=True)
-    # 5. The card, then the result.
+    # 7. The card, then the result.
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -149,7 +149,7 @@ class MatchBackend(abc.ABC):
 
     def enable_reliability(self, state) -> None:
         raise NotImplementedError(
-            "the reliability tier is not ported yet (slice 8 of the port)")
+            "the reliability tier is not ported yet (slice 7 of the port)")
 
     # ------------------------------------------------------------- storage
     def program_entries(self, page_addr: int, entries, **kw):
@@ -245,8 +245,8 @@ class MatchBackend(abc.ABC):
 
 # Backends of the JAX package that the port has not reached yet, and the
 # slice of the port (ROADMAP.md) that brings each.
-_LATER = {"scalar": "the scalar reference backend (slice 5 of the port)",
-          "sharded": "the sharded SSD backend (slice 7 of the port)"}
+_LATER = {"scalar": "the scalar reference backend (slice 4 of the port)",
+          "sharded": "the sharded SSD backend (slice 6 of the port)"}
 
 
 def make_backend(name: str, chips: SimChipArray, **kw) -> MatchBackend:

@@ -1,19 +1,30 @@
-"""Carry stored chip state across packages as plain numpy and ints.
+"""Carry state across packages as plain numpy and ints: stored chip pages
+and LM parameters.
 
-This system has no weights; its stored pages play that role.  The state of
-a ``SimChipArray`` is, per chip, its ``device_seed`` and ``pages_per_chip``
-and, per programmed page, the ``StoredPage`` fields (``raw``,
-``clean_raw``, ``chunk_parities``, ``timestamp_ns``, ``n_entries``,
-``injected_error_bits``).  :func:`chip_array_to_numpy` reads that state off
-any object with the ``SimChipArray`` attribute layout — the JAX package's
-or this one's — and :func:`chip_array_from_numpy` builds the port's
-``SimChipArray`` from it, bit for bit.
+The state of a ``SimChipArray`` is, per chip, its ``device_seed`` and
+``pages_per_chip`` and, per programmed page, the ``StoredPage`` fields
+(``raw``, ``clean_raw``, ``chunk_parities``, ``timestamp_ns``,
+``n_entries``, ``injected_error_bits``).  :func:`chip_array_to_numpy`
+reads that state off any object with the ``SimChipArray`` attribute layout
+— the JAX package's or this one's — and :func:`chip_array_from_numpy`
+builds the port's ``SimChipArray`` from it, bit for bit.
+
+LM parameters travel as the JAX package's parameter tree: nested dicts of
+numpy arrays keyed as the port's module names (``blocks.attn.wq`` is
+``tree["blocks"]["attn"]["wq"]``).  :func:`params_from_numpy` builds the
+port's model from such a tree and :func:`params_to_numpy` gives it back,
+bit for bit; bfloat16 crosses as its 16-bit pattern.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
+from torch import nn
 
 from repro_torch.core.engine import SimChipArray, StoredPage
+from repro_torch.device import resolve_device
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import DenseLM
 
 PAGE_FIELDS = ("raw", "clean_raw", "chunk_parities", "timestamp_ns",
                "n_entries", "injected_error_bits")
@@ -69,3 +80,65 @@ def chip_array_from_numpy(state: dict) -> SimChipArray:
                 clean_raw=(None if clean is None else
                            np.array(clean, dtype=np.uint8, copy=True)))
     return arr
+
+
+def _tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
+    """numpy -> tensor of the same bits; bfloat16 arrays (numpy's
+    ``ml_dtypes`` extension type, which torch does not read) go through
+    their uint16 pattern."""
+    a = np.array(a, copy=True, order="C")      # writable, never aliased
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes             # numpy's bfloat16; only needed here
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_to_numpy(model: nn.Module) -> dict:
+    """The model's parameters as a nested dict of numpy arrays (copies), one
+    level per submodule; a submodule without parameters gives ``{}``."""
+    tree = {name: _tensor_to_numpy(p).copy()
+            for name, p in model.named_parameters(recurse=False)}
+    for name, child in model.named_children():
+        tree[name] = params_to_numpy(child)
+    return tree
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, *,
+                      device=None) -> DenseLM:
+    """The port's model for ``cfg`` with every parameter copied from
+    ``tree`` (the JAX ``init_model`` parameters as numpy).  Every leaf must
+    name a parameter of the same shape and dtype, and every parameter must
+    have a leaf.  ``device=None`` is the card."""
+    model = DenseLM(cfg, resolve_device(device))
+    params = dict(model.named_parameters())
+
+    def leaves(node, prefix=""):
+        for key, val in node.items():
+            if isinstance(val, dict):
+                yield from leaves(val, f"{prefix}{key}.")
+            else:
+                yield f"{prefix}{key}", val
+
+    seen = set()
+    with torch.no_grad():
+        for name, a in leaves(tree):
+            if name not in params:
+                raise KeyError(f"{name}: no such parameter in {cfg.name}")
+            t = _tensor_from_numpy(np.asarray(a))
+            p = params[name]
+            if t.shape != p.shape or t.dtype != p.dtype:
+                raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype}, the "
+                                 f"model has {tuple(p.shape)} {p.dtype}")
+            p.copy_(t)
+            seen.add(name)
+    missing = sorted(set(params) - seen)
+    if missing:
+        raise KeyError(f"no value for parameters {missing}")
+    return model

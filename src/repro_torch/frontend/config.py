@@ -30,12 +30,12 @@ SCHEDULERS = ("fifo", "read_priority", "fair_share")
 
 # Knob -> (value that leaves it off, the slice of the port that runs it).
 _NOT_PORTED = {
-    "mode": ("serial", "the event-driven frontend (slice 8 of the port)"),
-    "reliability": (None, "the reliability tier (slice 8 of the port)"),
-    "faults": (None, "the device-fault tier (slice 8 of the port)"),
-    "deadline_ns": (None, "deadlines of the event frontend (slice 8)"),
-    "hedge_quantile": (None, "hedged reads of the event frontend (slice 8)"),
-    "shed_capacity": (None, "load shedding of the event frontend (slice 8)"),
+    "mode": ("serial", "the event-driven frontend (slice 7 of the port)"),
+    "reliability": (None, "the reliability tier (slice 7 of the port)"),
+    "faults": (None, "the device-fault tier (slice 7 of the port)"),
+    "deadline_ns": (None, "deadlines of the event frontend (slice 7)"),
+    "hedge_quantile": (None, "hedged reads of the event frontend (slice 7)"),
+    "shed_capacity": (None, "load shedding of the event frontend (slice 7)"),
 }
 
 

@@ -47,7 +47,7 @@ class ReplayCore:
         if not isinstance(backend, MatchBackend):
             raise NotImplementedError(
                 "replay needs a MatchBackend; wrapping a bare SimChipArray "
-                "in the scalar reference backend is slice 5 of the port")
+                "in the scalar reference backend is slice 4 of the port")
         self.workload = workload
         self.config = config
         self.backend = backend

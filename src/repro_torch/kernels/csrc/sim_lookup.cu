@@ -5,7 +5,8 @@
 //
 // Replaces the TPU kernel src/repro/kernels/sim_fused/sim_fused.py
 // (_lookup_kernel, launched by sim_lookup_kernel).  The cross-product
-// _fused_kernel in the same file is not ported here.
+// _fused_kernel in the same file is ported in sim_fused.cu; the two select
+// chunks differently (this one masks the header chunk, that one does not).
 //
 // What bounds it on the H100: bytes, then latency.  A row reads its 4 KiB of
 // key planes once, runs about 45 integer operations per slot (the §IV-C1

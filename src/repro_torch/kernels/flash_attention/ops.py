@@ -1,0 +1,63 @@
+"""Public wrapper of the flash attention kernel (csrc/flash_attention.cu):
+the (B, S, H, D) layout, GQA flattening, and the dispatch.
+
+A CUDA tensor launches the kernel at any Sq and Sk, the decode shape
+Sq = 1 included; a CPU tensor takes the plain PyTorch version in ref.py.
+There is no fallback between the two.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import native
+from .ref import attention_ref
+
+HEAD_DIMS = (32, 64, 128)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_GRID_Y = 65_535          # the kernel's grid puts B * H on its y axis
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: int | None = None, scale: float | None = None,
+                    q_offset: int | None = None):
+    """Multi-head attention with optional causal / sliding-window masking.
+
+    q: (B, Sq, H, D);  k, v: (B, Sk, Hkv, D), H a multiple of Hkv.  Query
+    row i sits at absolute position ``q_offset + i`` (default ``Sk - Sq``)
+    and sees keys ``q_offset + i - window < j <= q_offset + i``; a row that
+    sees no key gives 0.  Returns (B, Sq, H, D) in q's dtype.
+    """
+    b, sq, h, d = q.shape
+    _, sk, hkv, _ = k.shape
+    scale = d ** -0.5 if scale is None else scale
+    q_offset = sk - sq if q_offset is None else q_offset
+    if window is not None and window <= 0:
+        raise ValueError(f"window {window} must be positive")
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             scale=scale, q_offset=q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no implementation on {q.device}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: the "
+                         f"kernel takes one of {list(DTYPES)} for all three")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d}: the kernel takes {HEAD_DIMS}")
+    if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
+            or h % hkv or b * h > MAX_GRID_Y):
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not fit the kernel")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k and v must be on one device")
+    # (B, S, H, D) -> (B*H, S, D): head-major, so the q heads of one kv
+    # group are contiguous and q row bh reads kv row bh // (H // Hkv).
+    qf = q.transpose(1, 2).reshape(b * h, sq, d).contiguous()
+    kf = k.transpose(1, 2).reshape(b * hkv, sk, d).contiguous()
+    vf = v.transpose(1, 2).reshape(b * hkv, sk, d).contiguous()
+    out = torch.empty_like(qf)
+    if qf.numel():
+        native.launch("flash_attention_launch", qf, kf, vf, out, b * h, sq,
+                      sk, d, h // hkv, float(scale), int(causal), window or 0,
+                      q_offset, DTYPES[q.dtype], device=q.device)
+        native.LAUNCHES["flash_attention"] += 1
+    return out.view(b, h, sq, d).transpose(1, 2)

@@ -44,10 +44,14 @@ SIGNATURES = {
                           _I, _P),
     "sim_plan_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _P),
+    "sim_fused_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _I, _P),
+    "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               ctypes.c_float, _I, _I, _I, _I, _I, _P),
 }
 
 LAUNCHES = {"sim_search": 0, "sim_gather": 0, "sim_lookup": 0,
-            "sim_plan": 0}
+            "sim_plan": 0, "sim_fused": 0, "flash_attention": 0}
 
 
 def reset_launches() -> None:

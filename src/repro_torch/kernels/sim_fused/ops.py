@@ -1,14 +1,85 @@
-"""Public wrapper of the paired lookup kernel (csrc/sim_lookup.cu).
+"""Public wrappers of the fused search+gather kernels: the cross product
+(csrc/sim_fused.cu) and the paired lookup (csrc/sim_lookup.cu).
 
 A CUDA tensor launches the kernel; a CPU tensor takes the plain PyTorch
 version in ref.py.  There is no fallback between the two.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from repro_torch.core.bits import u64_array_to_pairs
+from repro_torch.device import resolve_device
 from repro_torch.kernels import native
-from .ref import sim_lookup_ref
+from repro_torch.kernels.layout import pages_to_planes, words_to_tensor
+from repro_torch.kernels.sim_search.ops import resolve_pages
+from .ref import sim_fused_ref, sim_lookup_ref
+
+
+def sim_fused(lo, hi, queries, masks, *, max_out: int = 16,
+              page_base: int = 0, randomized: bool = False,
+              device_seed: int = 0, page_ids=None, page_seeds=None):
+    """Fused multi-query search+gather over page planes, one launch.
+
+    lo, hi:          (N, 512) int32 word planes
+    queries, masks:  (Q, 2) int32, or (2,) for one query — then the outputs
+                     lose their leading Q axis, as the JAX package's do
+    page_ids/page_seeds: (N,) int32 per-page flash addresses and seeds, so
+                     one launch spans chips; by default page i is at
+                     ``page_base + i`` on a chip of seed ``device_seed``
+    Returns (bitmaps (Q, N, 16), gathered (Q, N, max_out, 16) — randomized
+    as stored, counts (Q, N) int32 — selected chunks, header chunk
+    included, those past ``max_out`` too).
+    """
+    single = queries.dim() == 1
+    queries = queries.reshape(-1, 2).contiguous()
+    masks = masks.reshape(-1, 2).contiguous()
+    device = lo.device
+    n, n_q = lo.shape[0], queries.shape[0]
+    if max_out < 0:
+        raise ValueError(f"max_out {max_out} < 0")
+    page_ids, page_seeds = resolve_pages(
+        n, device, page_base=page_base, device_seed=device_seed,
+        page_ids=page_ids, page_seeds=page_seeds)
+    if device.type == "cpu":
+        bm, out, cnt = sim_fused_ref(lo, hi, queries, masks, page_ids,
+                                     page_seeds, max_out=max_out,
+                                     randomized=randomized)
+    elif device.type == "cuda":
+        for name, t, shape in (("lo", lo, (n, 512)), ("hi", hi, (n, 512)),
+                               ("queries", queries, (n_q, 2)),
+                               ("masks", masks, (n_q, 2)),
+                               ("page_ids", page_ids, (n,)),
+                               ("page_seeds", page_seeds, (n,))):
+            native.check_operand(name, t, shape, device)
+        bm = torch.empty((n_q, n, 16), dtype=torch.int32, device=device)
+        out = torch.empty((n_q, n, max_out, 16), dtype=torch.int32,
+                          device=device)
+        cnt = torch.empty((n_q, n), dtype=torch.int32, device=device)
+        if n and n_q:
+            native.launch("sim_fused_launch", lo, hi, queries, masks,
+                          page_ids, page_seeds, bm, out, cnt, n, n_q, max_out,
+                          int(randomized), device=device)
+            native.LAUNCHES["sim_fused"] += 1
+    else:
+        raise ValueError(f"sim_fused: no implementation on {device}")
+    if single:
+        return bm[0], out[0], cnt[0]
+    return bm, out, cnt
+
+
+def sim_fused_pages(pages_bytes: np.ndarray, queries_u64, masks_u64, *,
+                    device=None, **kw):
+    """Convenience: raw (N, 4096) uint8 pages and uint64 queries and masks
+    through :func:`sim_fused`, on the card unless ``device`` says
+    otherwise.  ``kw`` are :func:`sim_fused`'s keywords."""
+    device = resolve_device(device)
+    lo, hi = pages_to_planes(pages_bytes)
+    q = u64_array_to_pairs(np.atleast_1d(np.asarray(queries_u64, np.uint64)))
+    m = u64_array_to_pairs(np.atleast_1d(np.asarray(masks_u64, np.uint64)))
+    return sim_fused(*(words_to_tensor(a, device) for a in (lo, hi, q, m)),
+                     **kw)
 
 
 def sim_fused_lookup(klo, khi, vlo, vhi, queries, masks, key_ids, key_seeds,

@@ -1,17 +1,53 @@
-"""Plain PyTorch version of the paired lookup kernel (csrc/sim_lookup.cu).
+"""Plain PyTorch versions of the two fused search+gather kernels: the
+cross-product form (csrc/sim_fused.cu) and the paired lookup
+(csrc/sim_lookup.cu).
 
-Only the lookup form of the JAX package's sim_fused module is ported so
-far; its cross-product search+gather kernel is not.
+The two select chunks differently: the cross product gathers every chunk
+holding a match, the header chunk (slots 0..7) included; the lookup masks
+the header chunk before it picks its first user slot.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.layout import planes_to_chunk_words
-from repro_torch.kernels.sim_search.ref import pack_bits, stream_planes, u32
+from repro_torch.kernels.sim_gather.ref import sim_gather_ref
+from repro_torch.kernels.sim_search.ref import (pack_bits, stream_planes,
+                                                to_i32, u32)
 
 NO_SLOT = 512            # first-match sentinel: no user slot matched
 SLOTS_PER_CHUNK = 8
+
+
+def sim_fused_ref(lo, hi, queries, masks, page_ids, page_seeds, *,
+                  max_out: int, randomized: bool):
+    """Q queries x N pages: search, chunk select, same-page gather.
+
+    lo, hi: (N, 512) int32 planes; queries, masks: (Q, 2) int32;
+    page_ids, page_seeds: (N,) int32.  Returns (bitmaps (Q, N, 16) int32,
+    gathered (Q, N, max_out, 16) int32 — the chunks holding a match,
+    header chunk included, front-packed in chunk order and randomized as
+    stored; counts (Q, N) int32 — every selected chunk, those past
+    ``max_out`` too).
+    """
+    d_lo, d_hi = u32(lo), u32(hi)
+    if randomized:
+        s_lo, s_hi = stream_planes(page_ids, page_seeds)
+        d_lo, d_hi = d_lo ^ s_lo, d_hi ^ s_hi
+    q, m = u32(queries), u32(masks)
+    mm = ((d_lo[None] ^ q[:, 0, None, None]) & m[:, 0, None, None]) | (
+        (d_hi[None] ^ q[:, 1, None, None]) & m[:, 1, None, None])
+    bits = mm == 0                                     # (Q, N, 512)
+    n_q, n = bits.shape[:2]
+    chunk_bits = bits.reshape(n_q, n, 64, SLOTS_PER_CHUNK).any(dim=-1)
+    shifts = torch.arange(32, dtype=torch.int64, device=lo.device)
+    chunk_bitmap = to_i32((chunk_bits.to(torch.int64).reshape(n_q * n, 2, 32)
+                           << shifts).sum(dim=-1))     # (Q*N, 2) lo, hi
+    chunks = planes_to_chunk_words(lo, hi).expand(n_q, n, 64, 16)
+    gathered, counts = sim_gather_ref(chunks.reshape(n_q * n, 64, 16),
+                                      chunk_bitmap, max_out)
+    return (pack_bits(bits), gathered.reshape(n_q, n, max_out, 16),
+            counts.reshape(n_q, n))
 
 
 def sim_lookup_ref(klo, khi, vlo, vhi, queries, masks, key_ids, key_seeds, *,

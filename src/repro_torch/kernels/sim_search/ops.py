@@ -6,10 +6,14 @@ fails raises.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from repro_torch.core.bits import u64_array_to_pairs
+from repro_torch.device import resolve_device
 from repro_torch.kernels import native
-from .ref import sim_search_ref
+from repro_torch.kernels.layout import pages_to_planes, words_to_tensor
+from .ref import U32, sim_search_ref, to_i32
 
 
 def sim_search(lo, hi, queries, masks, page_ids, page_seeds, *,
@@ -44,3 +48,34 @@ def sim_search(lo, hi, queries, masks, page_ids, page_seeds, *,
                       page_seeds, out, n, q, int(randomized), device=device)
         native.LAUNCHES["sim_search"] += 1
     return out
+
+
+def resolve_pages(n: int, device, *, page_base: int = 0, device_seed: int = 0,
+                  page_ids=None, page_seeds=None):
+    """Per-page stream operands as (N,) int32 tensors on ``device``: the
+    given ``page_ids``/``page_seeds``, or the contiguous addresses
+    ``page_base + i`` and one ``device_seed`` for every page."""
+    if page_ids is None:
+        page_ids = to_i32((page_base + torch.arange(n, dtype=torch.int64))
+                          & U32)
+    if page_seeds is None:
+        page_seeds = to_i32(torch.full((n,), device_seed & U32,
+                                       dtype=torch.int64))
+    return page_ids.to(device), page_seeds.to(device)
+
+
+def sim_search_pages(pages_bytes: np.ndarray, queries_u64, masks_u64, *,
+                     randomized: bool = False, page_base: int = 0,
+                     device_seed: int = 0, device=None) -> torch.Tensor:
+    """Convenience: raw (N, 4096) uint8 pages and uint64 queries and masks
+    -> (Q, N, 16) int32 bitmaps, on the card unless ``device`` says
+    otherwise.  Page i is at flash address ``page_base + i`` on a chip of
+    seed ``device_seed``."""
+    device = resolve_device(device)
+    lo, hi = pages_to_planes(pages_bytes)
+    q = u64_array_to_pairs(np.atleast_1d(np.asarray(queries_u64, np.uint64)))
+    m = u64_array_to_pairs(np.atleast_1d(np.asarray(masks_u64, np.uint64)))
+    ids, seeds = resolve_pages(lo.shape[0], device, page_base=page_base,
+                               device_seed=device_seed)
+    return sim_search(*(words_to_tensor(a, device) for a in (lo, hi, q, m)),
+                      ids, seeds, randomized=randomized)

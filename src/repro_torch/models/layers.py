@@ -1,0 +1,224 @@
+"""Core layers of the dense LM: norms, RoPE, GQA attention, SwiGLU.
+
+Parameters live in ``nn.Module``s that hold every layer's weights stacked
+on a leading ``(L, ...)`` axis, named as in the JAX package's parameter
+tree (``blocks.attn.wq`` is ``params["blocks"]["attn"]["wq"]``), so that
+``repro_torch.convert`` carries weights across by name.  The layer
+functions take one layer's weights as a dict of tensors (``Blocks.layer``)
+and run on whatever device the tensors are on.
+
+dtype policy, as in the JAX package: parameters in ``cfg.dtype`` (bf16 by
+default); norms, SiLU, softmax and logits in float32, cast back.  The
+attention core is ``kernels.flash_attention.ops.flash_attention``: on the
+card every attention runs the hand-written kernel.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from .config import ModelConfig
+
+
+def pdtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+# --------------------------------------------------------------------- init
+
+def _dense_init(t: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
+    """Fill ``t`` in place: a normal truncated to +-2 sigma, drawn in float32
+    from ``gen``, scaled by 1/sqrt(fan_in), cast to ``t``'s dtype."""
+    x = torch.empty(t.shape, dtype=torch.float32, device=t.device)
+    nn.init.trunc_normal_(x, mean=0.0, std=1.0, a=-2.0, b=2.0, generator=gen)
+    t.copy_(x * fan_in ** -0.5)
+
+
+def head_pad_mask(cfg: ModelConfig, device=None) -> torch.Tensor:
+    """(padded_heads,) 1/0 float32 mask — real vs zero-padded q heads, laid
+    out per KV group (see ModelConfig.padded_heads)."""
+    h, kv, hp = cfg.n_heads, cfg.n_kv_heads, cfg.padded_heads
+    g, g_pad = h // kv, hp // kv
+    pos = torch.arange(hp, device=device) % g_pad
+    return (pos < g).to(torch.float32)
+
+
+def _param(shape, cfg: ModelConfig, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=pdtype(cfg), device=device),
+                        requires_grad=False)
+
+
+class Attention(nn.Module):
+    """wq (L, d, H, hd), wk/wv (L, d, Hkv, hd), wo (L, H, hd, d), and with
+    ``qk_norm`` q_norm/k_norm (L, hd); H is ``cfg.padded_heads``."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        L, d, h, k, hd = (cfg.n_layers, cfg.d_model, cfg.padded_heads,
+                          cfg.n_kv_heads, cfg.head_dim)
+        self.wq = _param((L, d, h, hd), cfg, device)
+        self.wk = _param((L, d, k, hd), cfg, device)
+        self.wv = _param((L, d, k, hd), cfg, device)
+        self.wo = _param((L, h, hd, d), cfg, device)
+        if cfg.qk_norm:
+            self.q_norm = _param((L, hd), cfg, device)
+            self.k_norm = _param((L, hd), cfg, device)
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        cfg = self.cfg
+        mask = head_pad_mask(cfg, self.wq.device).to(self.wq.dtype)
+        _dense_init(self.wq, cfg.d_model, gen)
+        self.wq.mul_(mask[None, None, :, None])
+        _dense_init(self.wk, cfg.d_model, gen)
+        _dense_init(self.wv, cfg.d_model, gen)
+        _dense_init(self.wo, cfg.n_heads * cfg.head_dim, gen)
+        self.wo.mul_(mask[None, :, None, None])
+        if cfg.qk_norm:
+            self.q_norm.fill_(1.0)
+            self.k_norm.fill_(1.0)
+
+
+class Mlp(nn.Module):
+    """SwiGLU: wi_gate, wi_up (L, d, f) and wo (L, f, d)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        L, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
+        self.wi_gate = _param((L, d, f), cfg, device)
+        self.wi_up = _param((L, d, f), cfg, device)
+        self.wo = _param((L, f, d), cfg, device)
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        d, f = self.wi_gate.shape[1:]
+        _dense_init(self.wi_gate, d, gen)
+        _dense_init(self.wi_up, d, gen)
+        _dense_init(self.wo, f, gen)
+
+
+class Norms(nn.Module):
+    """norm_0 (before attention) and norm_1 (before the MLP), each (L, d),
+    or nothing with ``nonparametric_norm``."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        if not cfg.nonparametric_norm:
+            self.norm_0 = _param((cfg.n_layers, cfg.d_model), cfg, device)
+            self.norm_1 = _param((cfg.n_layers, cfg.d_model), cfg, device)
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        for p in self.parameters():
+            p.fill_(1.0)
+
+
+class Blocks(nn.Module):
+    """The decoder stack: attention, norms and MLP of every layer."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.attn = Attention(cfg, device)
+        self.norms = Norms(cfg, device)
+        self.mlp = Mlp(cfg, device)
+
+    def layer(self, i: int) -> dict:
+        """Layer ``i``'s weights as ``{"attn": {...}, "norms": {...},
+        "mlp": {...}}`` of views."""
+        return {name: {k: p[i] for k, p in mod.named_parameters()}
+                for name, mod in self.named_children()}
+
+
+# -------------------------------------------------------------------- norms
+
+def rms_norm(x, weight=None, eps: float = 1e-5):
+    dt = x.dtype
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    if weight is not None:
+        y = y * weight.float()
+    return y.to(dt)
+
+
+def layer_norm_nonparametric(x, eps: float = 1e-5):
+    """olmo: LN without scale/bias parameters."""
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(dt)
+
+
+def block_norm(x, norms: dict, idx: int, cfg: ModelConfig):
+    if cfg.nonparametric_norm:
+        return layer_norm_nonparametric(x, cfg.norm_eps)
+    return rms_norm(x, norms[f"norm_{idx}"], cfg.norm_eps)
+
+
+# --------------------------------------------------------------------- rope
+
+def rope(x, positions, theta: float):
+    """x: (B, S, H, hd); positions: (B, S) or (S,) integer."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    # (..., S, 1, half): broadcast positions over heads and frequencies
+    angles = positions.float()[..., None, None] * freqs
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., :half], x[..., half:]
+    rx1 = x1 * cos - x2 * sin
+    rx2 = x2 * cos + x1 * sin
+    return torch.cat([rx1, rx2], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------- attention
+
+def apply_attention(p: dict, x, cfg: ModelConfig, *, positions,
+                    q_offset: int = 0, kv_cache=None, cache_index=None,
+                    attention=flash_attention):
+    """One attention layer; ``p`` holds the layer's weights.
+
+    Without a cache, x (B, S, d) attends to itself, query row i at absolute
+    position ``q_offset + i``.  With a cache ``(k_cache, v_cache)``, each
+    (B, C, Hkv, hd), the new tokens' k/v are written in place at
+    ``cache_index`` and x attends to the whole cache; slots past its own
+    position are masked by causality (``q_offset`` is the position).
+    ``attention`` is the attention core: the kernel's wrapper, or its plain
+    version to check it.
+    """
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+
+    if kv_cache is not None:
+        ck, cv = kv_cache
+        s = x.shape[1]
+        if not 0 <= cache_index <= ck.shape[1] - s:
+            raise IndexError(f"cache slots [{cache_index}, {cache_index + s})"
+                             f" outside a cache of {ck.shape[1]}")
+        ck[:, cache_index:cache_index + s] = k.to(ck.dtype)
+        cv[:, cache_index:cache_index + s] = v.to(cv.dtype)
+        k, v = ck, cv
+    out = attention(q, k, v, causal=True, window=cfg.sliding_window,
+                    q_offset=q_offset)
+    if cfg.padded_heads != cfg.n_heads:
+        # zero the padded heads' outputs so they contribute nothing
+        out = out * head_pad_mask(cfg, out.device).to(out.dtype)[
+            None, None, :, None]
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+# -------------------------------------------------------------------- mlp
+
+def apply_mlp(p: dict, x):
+    gate = torch.einsum("bsd,df->bsf", x, p["wi_gate"])
+    up = torch.einsum("bsd,df->bsf", x, p["wi_up"])
+    h = nn.functional.silu(gate.float()).to(x.dtype) * up
+    return torch.einsum("bsf,fd->bsd", h, p["wo"])

@@ -288,7 +288,7 @@ def test_unported_backends_raise_not_implemented(name):
 
 def test_unported_paths_raise_not_implemented():
     be = make_backend("batched", SimChipArray(2, 4), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 8"):
+    with pytest.raises(NotImplementedError, match="slice 7"):
         be.enable_reliability(object())
     with pytest.raises(ValueError):
         make_backend("nonesuch", SimChipArray(2, 4), device="cpu")

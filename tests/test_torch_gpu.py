@@ -4,9 +4,13 @@ Every test here is marked ``gpu`` and skips itself when no CUDA device is
 present (decided inside the test, never at import).  On the card, run them
 with ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py``.
 This file imports no JAX, so it runs where only PyTorch is installed.
-Tolerance is 0: the kernels and the plain versions compute the same
-integer function.
+Tolerance is 0 for the SiM kernels: they and their plain versions compute
+the same integer function.  Flash attention is held at 2e-6 (float32) and
+2e-2 (bfloat16), the JAX package's own tolerances: the kernel sums in
+another order than the plain version.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -18,15 +22,23 @@ from repro_torch.core.range_query import (RangePlan, approximate_range,
                                           exact_range)
 from repro_torch.frontend import RunConfig, replay
 from repro_torch.kernels import native
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.layout import words_to_tensor
-from repro_torch.kernels.sim_fused.ops import sim_fused_lookup
-from repro_torch.kernels.sim_fused.ref import sim_lookup_ref
+from repro_torch.kernels.sim_fused.ops import sim_fused, sim_fused_lookup
+from repro_torch.kernels.sim_fused.ref import sim_fused_ref, sim_lookup_ref
 from repro_torch.kernels.sim_gather.ops import sim_gather
 from repro_torch.kernels.sim_gather.ref import sim_gather_ref
 from repro_torch.kernels.sim_plan.ops import sim_plan
 from repro_torch.kernels.sim_plan.ref import plan_pass_rows, sim_plan_ref
 from repro_torch.kernels.sim_search.ops import sim_search
 from repro_torch.kernels.sim_search.ref import sim_search_ref, stream_planes
+from repro_torch.configs import get_config, reduced_config
+from repro_torch.convert import params_from_numpy, params_to_numpy
+from repro_torch.launch.serve import requests
+from repro_torch.models.model import init_model
+from repro_torch.serve.batching import ServeEngine
+from repro_torch.serve.kvcache import SimPagedKVCache
 from repro_torch.workload.ycsb import generate
 
 
@@ -217,3 +229,120 @@ def test_replay_on_card_matches_cpu(fused):
     assert card.read_hits[wl.ops == 0].all()
     assert (card.kernel_launches, card.staged_bytes, card.result_bytes) == \
         (cpu.kernel_launches, cpu.staged_bytes, cpu.result_bytes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_pages,n_queries,max_out", [(64, 8, 16), (17, 3, 4),
+                                                       (5, 2, 64), (1, 1, 0)])
+def test_sim_fused_kernel_matches_plain(n_pages, n_queries, max_out):
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(n_pages * 5 + n_queries)
+    lo, hi = _u32(rng, (n_pages, 512)), _u32(rng, (n_pages, 512))
+    ids = rng.integers(0, 4096, n_pages).astype(np.uint32)
+    seeds = _u32(rng, (n_pages,))
+    for randomized in (False, True):
+        s_lo, s_hi = _stream(ids, seeds) if randomized else (
+            np.zeros_like(lo), np.zeros_like(hi))
+        # query 0: a header slot and a user slot; the next a 4-bit mask (many
+        # chunks, past max_out); the last mask 0 (all 64 chunks)
+        q, m = _u32(rng, (n_queries, 2)), _u32(rng, (n_queries, 2))
+        p = n_pages - 1
+        q[0] = [lo[p, 3] ^ s_lo[p, 3], hi[p, 3] ^ s_hi[p, 3]]
+        lo[p, 300], hi[p, 300] = q[0, 0] ^ s_lo[p, 300], q[0, 1] ^ s_hi[p, 300]
+        m[0] = [0xFFFFFFFF, 0xFFFFFFFF]
+        if n_queries > 1:
+            m[1] = [0xF, 0]
+            q[-1], m[-1] = 0, 0
+        args = [words_to_tensor(a, dev) for a in (lo, hi, q, m)]
+        kw = dict(max_out=max_out, randomized=randomized,
+                  page_ids=words_to_tensor(ids, dev),
+                  page_seeds=words_to_tensor(seeds, dev))
+        before = native.LAUNCHES["sim_fused"]
+        got = sim_fused(*args, **kw)
+        torch.cuda.synchronize()
+        assert native.LAUNCHES["sim_fused"] == before + 1
+        plain = sim_fused_ref(*args, kw["page_ids"], kw["page_seeds"],
+                              max_out=max_out, randomized=randomized)
+        assert int(plain[2][0, p]) == 2               # chunks 0 and 37
+        if n_queries > 1:
+            assert (plain[2][-1] == 64).all()
+        _check_equal(got, plain)
+
+
+def _attn_inputs(dev, dtype, b, sq, sk, h, hkv, d, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=(b, s, n, d)).astype(np.float32))
+            .to(dev, dtype) for s, n in ((sq, h), (sk, hkv), (sk, hkv))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,kw", [
+    ((2, 256, 256, 4, 2, 64), dict(causal=True)),
+    ((2, 256, 256, 4, 2, 64), dict(causal=False)),
+    ((2, 256, 256, 4, 2, 64), dict(causal=True, window=128)),
+    ((1, 16, 16, 32, 8, 128), dict(causal=True)),
+    ((1, 1, 128, 32, 8, 128), dict(causal=True, q_offset=5)),
+    ((1, 1, 128, 32, 8, 128), dict(causal=True, q_offset=127)),
+    ((2, 37, 70, 6, 2, 32), dict(causal=True, window=9)),
+    ((1, 5, 3, 2, 1, 32), dict(causal=True, q_offset=-2)),
+])
+def test_flash_attention_kernel_matches_plain(dtype, shape, kw):
+    dev = _cuda_or_skip()
+    q, k, v = _attn_inputs(dev, dtype, *shape, seed=sum(shape))
+    before = native.LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["flash_attention"] == before + 1
+    plain = attention_ref(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-6 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), plain.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_flash_attention_refuses_what_it_does_not_take():
+    dev = _cuda_or_skip()
+    q, k, v = _attn_inputs(dev, torch.float16, 1, 4, 4, 2, 1, 32, 0)
+    with pytest.raises(ValueError):
+        flash_attention(q, k, v)                     # float16
+    q, k, v = _attn_inputs(dev, torch.float32, 1, 4, 4, 2, 1, 48, 0)
+    with pytest.raises(ValueError):
+        flash_attention(q, k, v)                     # head dim 48
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
+def test_serve_on_card_matches_cpu(paged):
+    """A reduced qwen3-4b (head_dim 32: the kernel takes 32, 64 or 128)
+    served on the card and on the CPU with the same weights: the greedy
+    token counts and the block table's counters agree, and every attention
+    on the card ran the kernel."""
+    dev = _cuda_or_skip()
+    cfg = dataclasses.replace(reduced_config(get_config("qwen3-4b")),
+                              head_dim=32, dtype="float32")
+    cpu_model = init_model(cfg, seed=0, device="cpu")
+    runs = {}
+    for device in (dev, torch.device("cpu")):
+        model = cpu_model if device.type == "cpu" else params_from_numpy(
+            params_to_numpy(cpu_model), cfg, device=dev)
+        cache = SimPagedKVCache(cfg, n_pages=64, page_tokens=4,
+                                device=device) if paged else None
+        engine = ServeEngine(model, max_slots=2, cache_len=32,
+                             paged_cache=cache)
+        for req in requests(4, cfg.vocab_size, 0):
+            engine.submit(req)
+        before = native.LAUNCHES["flash_attention"]
+        engine.run()
+        runs[device.type] = (engine, cache,
+                             native.LAUNCHES["flash_attention"] - before)
+    (card, card_cache, launched), (cpu, cpu_cache, none) = (runs["cuda"],
+                                                            runs["cpu"])
+    assert launched == cfg.n_layers * (card.prefills + card.decodes) > 0
+    assert none == 0
+    assert [len(c.tokens) for c in card.completed] == [
+        len(c.tokens) for c in cpu.completed]
+    if paged:
+        assert card_cache.stats == cpu_cache.stats
+        assert card_cache.stats.pages_freed == \
+            card_cache.stats.pages_allocated > 0

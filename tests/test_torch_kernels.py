@@ -20,7 +20,7 @@ from repro_torch.kernels import native
 from repro_torch.kernels.layout import (pages_to_chunk_words,
                                         planes_to_chunk_words,
                                         tensor_to_words, words_to_tensor)
-from repro_torch.kernels.sim_fused.ops import sim_fused_lookup
+from repro_torch.kernels.sim_fused.ops import sim_fused, sim_fused_lookup
 from repro_torch.kernels.sim_gather.ops import sim_gather
 from repro_torch.kernels.sim_plan.ops import sim_plan
 from repro_torch.kernels.sim_search.ops import sim_search
@@ -156,8 +156,10 @@ def test_cpu_tensors_never_launch():
     sim_plan(_t(lo), _t(hi), _t(q[None]), _t(m[None]),
              _t(np.ones((1, 2), np.uint32)), _t(ids), _t(seeds),
              randomized=True)
+    sim_fused(_t(lo), _t(hi), _t(q), _t(m), max_out=4, randomized=True)
     assert native.LAUNCHES == {"sim_search": 0, "sim_gather": 0,
-                               "sim_lookup": 0, "sim_plan": 0}
+                               "sim_lookup": 0, "sim_plan": 0,
+                               "sim_fused": 0, "flash_attention": 0}
 
 
 def test_wrappers_refuse_other_devices():

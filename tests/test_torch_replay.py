@@ -132,5 +132,5 @@ def test_scans_and_bare_chip_arrays_raise_not_implemented():
     assert (rep.scan_counts[scans] > 0).all()
     assert be.stats.plans == rep.n_scans
     wl = generate(50, n_key_pages=2, read_ratio=0.5, alpha=0.0, seed=1)
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(NotImplementedError, match="slice 4"):
         replay(wl, SimChipArray(2, 4))
