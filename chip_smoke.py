@@ -9,9 +9,10 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
 2. Kernel checks: each kernel against its plain PyTorch version on the
    card — the SiM kernels bit-exact on inputs with planted hits, flash
    attention within 2e-6 (float32) and 2e-2 (bfloat16) — with CUDA-event
-   times per launch for both, the kernel's bound at the timed shapes and,
-   for attention, PyTorch's ``scaled_dot_product_attention`` as the
-   library yardstick (timed only; the port never calls it).
+   times per launch for both beside the launch floor (an empty kernel),
+   the kernel's bound at the timed shapes and, for attention, PyTorch's
+   ``scaled_dot_product_attention`` in its fastest form for each case as
+   the library yardstick (timed only; the port never calls it).
 3. Replays through ``repro_torch.frontend.replay`` on the ``batched``
    backend, each checked against a numpy oracle of serial semantics:
    YCSB-B split and fused (they must also agree), YCSB-E range scans
@@ -25,7 +26,9 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    (``repro_torch.launch.serve.serve``): every attention of prefill and
    decode through the flash attention kernel, the block table's counters
    recounted from the requests, a paged sequence gathered back bit for bit,
-   and first-token logits held against the plain attention.
+   and first-token logits held against the plain attention.  Then the
+   launcher's default, the reduced qwen3-4b (16-wide heads), served on the
+   card through the kernel, with the same checks but the gather.
 6. One JSON line of the kernels, their launches and times.
 7. The card's ``nvidia-smi`` name and power limit, then the last line:
    ``{"ok": true, "device": {...}}``.
@@ -441,7 +444,8 @@ def fused_bound(n_pages, n_queries, max_out):
 
 
 # (label, dtype, (B, Sq, Sk, H, Hkv, D), masks): qwen3-4b's prefill and
-# decode shapes on the serve path, and the JAX package's sweep shape.
+# decode shapes on the serve path, the reduced qwen3-4b's (16-wide heads),
+# and the JAX package's sweep shape.
 ATTN_CASES = [
     ("qwen3-4b prefill", torch.bfloat16, (1, 16, 16, 32, 8, 128),
      dict(causal=True)),
@@ -449,6 +453,10 @@ ATTN_CASES = [
      dict(causal=True, q_offset=5)),
     ("qwen3-4b decode, q_offset 127", torch.bfloat16,
      (1, 1, 128, 32, 8, 128), dict(causal=True, q_offset=127)),
+    ("reduced qwen3-4b prefill", torch.bfloat16, (1, 16, 16, 4, 2, 16),
+     dict(causal=True)),
+    ("reduced qwen3-4b decode, q_offset 20", torch.bfloat16,
+     (1, 1, 128, 4, 2, 16), dict(causal=True, q_offset=20)),
 ] + [(f"sweep {dt} {name}", dt, (2, 256, 256, 4, 2, 64), kw)
      for dt in (torch.float32, torch.bfloat16)
      for name, kw in (("causal", dict(causal=True)),
@@ -499,20 +507,27 @@ def attn_bound(dtype, shape, kw):
 
 
 def sdpa(q, k, v, shape, kw):
-    """PyTorch's fused attention on the same inputs and masks (the library
-    yardstick; the port never calls it)."""
+    """PyTorch's fused attention on the same inputs and masks, in its
+    fastest form for the case (the library yardstick; the port never calls
+    it): a causal prefill with aligned ends as ``is_causal``; a one-row
+    causal decode with k and v cut to the visible keys ``[: q_offset + 1]``
+    and no mask, so that SDPA takes its flash path; a boolean mask only
+    where neither form fits."""
     sq, sk = shape[1], shape[2]
-    plain_causal = kw.get("causal", True) and kw.get("window") is None \
-        and kw.get("q_offset", sk - sq) == 0 and sq == sk
+    causal, window = kw.get("causal", True), kw.get("window")
+    q_offset = kw.get("q_offset", sk - sq)
+    plain_causal = causal and window is None and q_offset == 0 and sq == sk
     mask = None
-    if not plain_causal and not attn_keep(shape, kw).all():
+    if sq == 1 and causal and window is None and 0 <= q_offset < sk:
+        k, v = k[:, :q_offset + 1], v[:, :q_offset + 1]
+    elif not plain_causal and not attn_keep(shape, kw).all():
         mask = torch.from_numpy(attn_keep(shape, kw)).to(q.device)
     return torch.nn.functional.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         attn_mask=mask, is_causal=plain_causal, enable_gqa=True)
 
 
-def attention_checks(dev) -> dict:
+def attention_checks(dev, floor_ms) -> dict:
     """Flash attention against its plain version at every case, within
     ATTN_TOL; times of kernel, plain version and library at each case."""
     err = 0.0
@@ -537,9 +552,11 @@ def attention_checks(dev) -> dict:
         log(f"kernel flash_attention [{label}, {tuple(shape)}]: max abs err "
             f"{float(diff.max()):.3e} (tol {tol}), library max abs err "
             f"{float((lib - plain).abs().max()):.3e}; {row['ms']:.6f} "
-            f"ms/launch, plain {row['plain_ms']:.6f} ms, library "
-            f"{row['library_ms']:.6f} ms, bound {row['bound'][0]:.6f} ms "
-            f"({row['bound'][1]})")
+            f"ms/launch ({row['ms'] - floor_ms:.6f} above the launch floor), "
+            f"plain {row['plain_ms']:.6f} ms, library "
+            f"{row['library_ms']:.6f} ms (kernel/library "
+            f"{row['ms'] / row['library_ms']:.3f}), bound "
+            f"{row['bound'][0]:.6f} ms ({row['bound'][1]})")
     return dict(max_abs_err=err, shape=ATTN_TIMED[0], **row)
 
 
@@ -551,7 +568,12 @@ def bound(ops, nbytes):
 
 def kernel_checks(dev) -> dict:
     """Each kernel against its plain version on the card; times at the
-    main path's largest burst shapes (64 queries, 64 pages or rows)."""
+    main path's largest burst shapes (64 queries, 64 pages or rows), beside
+    the launch floor: the device time of an empty kernel launched the same
+    way (``torch.cuda._sleep(0)``)."""
+    floor_ms = device_ms(lambda: torch.cuda._sleep(0), 200)
+    log(f"launch floor: {floor_ms:.6f} ms a launch (an empty kernel, "
+        "back to back)")
     rows = {}
 
     err = 0
@@ -614,15 +636,17 @@ def kernel_checks(dev) -> dict:
     timed = {}
     for n_pages, p_pad, kind in ((32, 16, "replay"), (64, 128, "work")):
         args, _, _, _ = plan_case(dev, n_pages, p_pad, kind, 5)
+        ms = device_ms(lambda: sim_plan(*args, randomized=True), 200)
         timed[kind] = dict(
-            ms=device_ms(lambda: sim_plan(*args, randomized=True), 200),
+            ms=ms,
             plain_ms=device_ms(lambda: sim_plan_ref(*args, randomized=True),
                                10),
             bound=bound(*plan_bound(args[4], n_pages)))
         log(f"kernel sim_plan [{kind}: G={args[2].shape[0]}, P={p_pad}, "
-            f"N={n_pages}]: {timed[kind]['ms']:.6f} ms/launch, plain "
-            f"{timed[kind]['plain_ms']:.6f} ms, bound "
-            f"{timed[kind]['bound'][0]:.6f} ms ({timed[kind]['bound'][1]})")
+            f"N={n_pages}]: {ms:.6f} ms/launch ({ms - floor_ms:.6f} above "
+            f"the launch floor), plain {timed[kind]['plain_ms']:.6f} ms, "
+            f"bound {timed[kind]['bound'][0]:.6f} ms "
+            f"({timed[kind]['bound'][1]})")
     rows["sim_plan"] = dict(
         max_abs_err=err, **timed["replay"],
         shape="replay scan: G=1, P=16, N=32, randomized, planted hits",
@@ -659,11 +683,13 @@ def kernel_checks(dev) -> dict:
             raise AssertionError(f"{name}: kernel differs from its plain "
                                  f"version (max abs err {r['max_abs_err']})")
         log(f"kernel {name} [{r['shape']}]: bit-exact vs plain; "
-            f"{r['ms']:.6f} ms/launch, plain {r['plain_ms']:.6f} ms, "
+            f"{r['ms']:.6f} ms/launch ({r['ms'] - floor_ms:.6f} above the "
+            f"launch floor), plain {r['plain_ms']:.6f} ms, "
             f"bound {r['bound'][0]:.6f} ms ({r['bound'][1]})")
-    rows["flash_attention"] = r = attention_checks(dev)
+    rows["flash_attention"] = r = attention_checks(dev, floor_ms)
     log(f"kernel flash_attention [{r['shape']}]: within tolerance of plain "
-        f"(max abs err {r['max_abs_err']:.3e}); {r['ms']:.6f} ms/launch, "
+        f"(max abs err {r['max_abs_err']:.3e}); {r['ms']:.6f} ms/launch "
+        f"({r['ms'] - floor_ms:.6f} above the launch floor), "
         f"plain {r['plain_ms']:.6f} ms, library {r['library_ms']:.6f} ms, "
         f"bound {r['bound'][0]:.6f} ms ({r['bound'][1]})")
     return rows
@@ -987,6 +1013,43 @@ def serve_path(dev) -> dict:
     return grew
 
 
+def reduced_serve_path(dev) -> dict:
+    """``python -m repro_torch.launch.serve --arch qwen3-4b --paged`` as a
+    user runs it: the reduced config (16-wide heads) on the default device,
+    the card, its launch counts set to 0 just before and read just after.
+    Every attention runs the kernel; the block table's counters equal the
+    recount from the requests, and the first-token logits are held against
+    the same prefill with the plain attention."""
+    torch.cuda.synchronize()
+    native.reset_launches()
+    completions, engine, cache = serve(SERVE_ARCH, paged=True, verbose=False)
+    torch.cuda.synchronize()
+    grew = dict(native.LAUNCHES)
+    cfg = engine.model.cfg
+    if cfg.head_dim != 16:
+        raise AssertionError(f"the reduced config has head dim {cfg.head_dim}")
+    if grew["flash_attention"] != cfg.n_layers * (engine.prefills
+                                                  + engine.decodes) or \
+            sum(grew.values()) != grew["flash_attention"]:
+        raise AssertionError(f"reduced serve: launches {grew} for "
+                             f"{engine.prefills} prefills and "
+                             f"{engine.decodes} decode steps")
+    reqs = requests(len(completions), cfg.vocab_size, 0)
+    want = paged_recount(reqs, completions, cache.page_tokens)
+    if cache.stats != want or want.pages_freed != want.pages_allocated:
+        raise AssertionError(f"reduced serve: paged counters {cache.stats}, "
+                             f"recount {want}")
+    rel = check_logits(engine.model, reqs, completions, dev)
+    log(f"reduced serve {SERVE_ARCH} ({cfg.n_layers} layers, {cfg.n_heads} q "
+        f"/ {cfg.n_kv_heads} kv heads of {cfg.head_dim}, {cfg.dtype}) on the "
+        f"card: {sum(len(c.tokens) for c in completions)} tokens, "
+        f"{engine.prefills} prefills, {engine.decodes} decode steps, "
+        f"launches {grew}, paged {cache.stats} (equal to the recount); "
+        f"first-token logits within {rel:.3e} <= {LOGITS_REL_TOL} of the "
+        f"plain attention")
+    return grew
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--key-pages", type=int, default=16_384)
@@ -1017,7 +1080,8 @@ def main(argv=None) -> int:
 
     # 3.-5. The main paths.
     launches = main_path(args.key_pages, args.n_ops)
-    for grew in (quickstart_path(), serve_path(dev)):
+    for grew in (quickstart_path(), serve_path(dev),
+                 reduced_serve_path(dev)):
         for k in launches:
             launches[k] += grew[k]
     for k in KERNELS:

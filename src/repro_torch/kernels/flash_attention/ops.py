@@ -1,5 +1,6 @@
 """Public wrapper of the flash attention kernel (csrc/flash_attention.cu):
-the (B, S, H, D) layout, GQA flattening, and the dispatch.
+the checks and the dispatch.  The kernel reads q, k and v in their
+(B, S, H, D) layout and writes the output in it, so nothing is copied.
 
 A CUDA tensor launches the kernel at any Sq and Sk, the decode shape
 Sq = 1 included; a CPU tensor takes the plain PyTorch version in ref.py.
@@ -12,9 +13,9 @@ import torch
 from repro_torch.kernels import native
 from .ref import attention_ref
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = tuple(range(16, 129, 16))   # every multiple of 16 to 128
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_GRID_Y = 65_535          # the kernel's grid puts B * H on its y axis
+MAX_GRID_YZ = 65_535         # the kernel's grid puts Hkv on y and B on z
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -44,20 +45,20 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d}: the kernel takes {HEAD_DIMS}")
     if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
-            or h % hkv or b * h > MAX_GRID_Y):
+            or h % hkv or max(b, hkv) > MAX_GRID_YZ):
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not fit the kernel")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on one device")
-    # (B, S, H, D) -> (B*H, S, D): head-major, so the q heads of one kv
-    # group are contiguous and q row bh reads kv row bh // (H // Hkv).
-    qf = q.transpose(1, 2).reshape(b * h, sq, d).contiguous()
-    kf = k.transpose(1, 2).reshape(b * hkv, sk, d).contiguous()
-    vf = v.transpose(1, 2).reshape(b * hkv, sk, d).contiguous()
-    out = torch.empty_like(qf)
-    if qf.numel():
-        native.launch("flash_attention_launch", qf, kf, vf, out, b * h, sq,
-                      sk, d, h // hkv, float(scale), int(causal), window or 0,
-                      q_offset, DTYPES[q.dtype], device=q.device)
+    # The kernel reads (B, S, H, D) in place: no copy unless a caller hands
+    # it a strided view.
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must be 16-byte aligned")
+    out = torch.empty_like(q)
+    if q.numel():
+        native.launch("flash_attention_launch", q, k, v, out, b, sq, sk, d, h,
+                      hkv, float(scale), int(causal), window or 0, q_offset,
+                      DTYPES[q.dtype], device=q.device)
         native.LAUNCHES["flash_attention"] += 1
-    return out.view(b, h, sq, d).transpose(1, 2)
+    return out

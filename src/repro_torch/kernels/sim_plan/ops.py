@@ -11,6 +11,8 @@ import torch
 from repro_torch.kernels import native
 from .ref import sim_plan_ref
 
+MAX_GROUPS = 65_535          # the kernel's grid puts the groups on its y axis
+
 
 def sim_plan(lo, hi, queries, masks, flags, page_ids, page_seeds, *,
              randomized: bool) -> torch.Tensor:
@@ -42,6 +44,9 @@ def sim_plan(lo, hi, queries, masks, flags, page_ids, page_seeds, *,
                            ("page_ids", page_ids, (n,)),
                            ("page_seeds", page_seeds, (n,))):
         native.check_operand(name, t, shape, device)
+    if g > MAX_GROUPS:
+        raise ValueError(f"{g} plan groups: the kernel's grid takes at most "
+                         f"{MAX_GROUPS}")
     out = torch.empty((g, n, 16), dtype=torch.int32, device=device)
     if n and g:
         native.launch("sim_plan_launch", lo, hi, queries, masks, flags,

@@ -1,9 +1,11 @@
-"""Serving entry point: continuous batching over a reduced model (on the
-CPU) or the full config (``--full``, on the card).  ``--paged``
-routes the KV cache through the SiM-paged block table (the paper's
-technique in the serving path).  Weights are random, from ``seed``.
+"""Serving entry point: continuous batching over a reduced model or the
+full config (``--full``), on the card unless ``--device cpu``.
+``--paged`` routes the KV cache through the SiM-paged block table (the
+paper's technique in the serving path).  Weights are random, from
+``seed``.
 
   python -m repro_torch.launch.serve --arch qwen3-4b --full --paged
+  python -m repro_torch.launch.serve --arch qwen3-4b --paged
   python -m repro_torch.launch.serve --arch qwen3-4b --paged --device cpu
 """
 from __future__ import annotations

@@ -24,7 +24,7 @@ from repro.kernels.flash_attention.ref import attention_ref as jax_ref
 from repro.models.layers import _attend, causal_mask_bias
 from repro.models.model import _decode_mask_bias
 from repro_torch.kernels import native
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import HEAD_DIMS, flash_attention
 
 JAX_DTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 
@@ -140,3 +140,14 @@ def test_cpu_never_launches_and_other_devices_refuse():
         flash_attention(meta, meta[:, :, :1], meta[:, :, :1])
     with pytest.raises(ValueError):
         flash_attention(q, k, v, window=0)
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("arch", sorted(a for a, c in ARCHS.items()
+                                         if c.family != "ssm"))
+def test_kernel_takes_every_attention_head_dim(arch, reduced):
+    """The kernel's head dims cover every config with attention layers
+    (xLSTM, the ssm family, has none), full and reduced: a model of the
+    repo never reaches the wrapper's refusal."""
+    cfg = reduced_config(ARCHS[arch]) if reduced else ARCHS[arch]
+    assert cfg.head_dim in HEAD_DIMS

@@ -30,12 +30,14 @@ from repro_torch.kernels.sim_fused.ref import sim_fused_ref, sim_lookup_ref
 from repro_torch.kernels.sim_gather.ops import sim_gather
 from repro_torch.kernels.sim_gather.ref import sim_gather_ref
 from repro_torch.kernels.sim_plan.ops import sim_plan
-from repro_torch.kernels.sim_plan.ref import plan_pass_rows, sim_plan_ref
+from repro_torch.kernels.sim_plan.ref import (PASS_EXCLUDE, PASS_INCLUDE,
+                                              PASS_PAD, plan_pass_rows,
+                                              sim_plan_ref)
 from repro_torch.kernels.sim_search.ops import sim_search
 from repro_torch.kernels.sim_search.ref import sim_search_ref, stream_planes
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.convert import params_from_numpy, params_to_numpy
-from repro_torch.launch.serve import requests
+from repro_torch.launch.serve import requests, serve
 from repro_torch.models.model import init_model
 from repro_torch.serve.batching import ServeEngine
 from repro_torch.serve.kvcache import SimPagedKVCache
@@ -300,27 +302,97 @@ def test_flash_attention_kernel_matches_plain(dtype, shape, kw):
     torch.testing.assert_close(got.float(), plain.float(), atol=tol, rtol=tol)
 
 
+def _check_attention(dev, dtype, shape, kw, seed):
+    q, k, v = _attn_inputs(dev, dtype, *shape, seed=seed)
+    before = native.LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["flash_attention"] == before + 1
+    plain = attention_ref(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-6 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), plain.float(), atol=tol, rtol=tol,
+                               msg=lambda m: f"{shape} {kw}: {m}")
+    return plain
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [16, 32, 64, 112, 128])
+def test_flash_attention_head_dims_and_groups(d, group, dtype):
+    """Every head dim the repo's configs use and GQA groups 1-8: prefill
+    rows Sq in {1, 4, 16, 17, 64, 256} against Sk = Sq + 13 (never a
+    multiple of the 64-key tile), and one-row decodes at q_offsets on the
+    tile edges of a 131-key cache."""
+    dev = _cuda_or_skip()
+    hkv = 2
+    for sq in (1, 4, 16, 17, 64, 256):
+        _check_attention(dev, dtype, (1, sq, sq + 13, hkv * group, hkv, d),
+                         dict(causal=True), seed=d + group + sq)
+    for q_offset in (0, 31, 32, 63, 64, 127):
+        _check_attention(dev, dtype, (2, 1, 131, hkv * group, hkv, d),
+                         dict(causal=True, q_offset=q_offset),
+                         seed=d * group + q_offset)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_windows_and_empty_rows(dtype):
+    """A window with no causal mask, rows that see no key (a window past
+    every key, causal rows before position 0: those rows give 0), and
+    decodes over long key ranges."""
+    dev = _cuda_or_skip()
+    _check_attention(dev, dtype, (2, 40, 90, 8, 2, 64),
+                     dict(causal=False, window=24, q_offset=30), seed=1)
+    plain = _check_attention(dev, dtype, (1, 20, 70, 4, 1, 16),
+                             dict(causal=False, window=8, q_offset=70),
+                             seed=2)
+    assert (plain[:, 8:] == 0).all() and (plain[:, :7] != 0).any()
+    plain = _check_attention(dev, dtype, (1, 24, 80, 4, 2, 112),
+                             dict(causal=True, q_offset=-5), seed=3)
+    assert (plain[:, :5] == 0).all() and (plain[:, 5:] != 0).any()
+    # Decodes over long ranges, whose keys split over the warps of a block
+    # and merge through shared memory from many chunks: a window inside a
+    # long cache, no causal mask.
+    _check_attention(dev, dtype, (2, 1, 300, 8, 2, 64),
+                     dict(causal=True, window=100, q_offset=250), seed=4)
+    _check_attention(dev, dtype, (1, 2, 200, 8, 2, 128),
+                     dict(causal=False), seed=5)
+    _check_attention(dev, dtype, (3, 1, 1000, 4, 4, 32),
+                     dict(causal=True, q_offset=999), seed=6)
+
+
 @pytest.mark.gpu
 def test_flash_attention_refuses_what_it_does_not_take():
     dev = _cuda_or_skip()
     q, k, v = _attn_inputs(dev, torch.float16, 1, 4, 4, 2, 1, 32, 0)
     with pytest.raises(ValueError):
         flash_attention(q, k, v)                     # float16
-    q, k, v = _attn_inputs(dev, torch.float32, 1, 4, 4, 2, 1, 48, 0)
+    for d in (40, 144):                              # not a multiple of 16
+        q, k, v = _attn_inputs(dev, torch.float32, 1, 4, 4, 2, 1, d, 0)
+        with pytest.raises(ValueError):
+            flash_attention(q, k, v)
+    q, k, v = _attn_inputs(dev, torch.float32, 1, 4, 4, 2, 1, 32, 0)
     with pytest.raises(ValueError):
-        flash_attention(q, k, v)                     # head dim 48
+        flash_attention(q, k.bfloat16(), v)          # mismatched dtypes
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("as_is", [False, True])
 @pytest.mark.parametrize("paged", [False, True])
-def test_serve_on_card_matches_cpu(paged):
-    """A reduced qwen3-4b (head_dim 32: the kernel takes 32, 64 or 128)
-    served on the card and on the CPU with the same weights: the greedy
-    token counts and the block table's counters agree, and every attention
-    on the card ran the kernel."""
+def test_serve_on_card_matches_cpu(paged, as_is):
+    """A reduced qwen3-4b served on the card and on the CPU with the same
+    weights: the greedy token counts and the block table's counters agree,
+    and every attention on the card ran the kernel.  ``as_is`` serves the
+    reduced config as it is (16-wide heads); otherwise with head_dim 32 in
+    float32."""
     dev = _cuda_or_skip()
-    cfg = dataclasses.replace(reduced_config(get_config("qwen3-4b")),
-                              head_dim=32, dtype="float32")
+    cfg = reduced_config(get_config("qwen3-4b"))
+    if as_is:
+        assert cfg.head_dim == 16
+    else:
+        cfg = dataclasses.replace(cfg, head_dim=32, dtype="float32")
     cpu_model = init_model(cfg, seed=0, device="cpu")
     runs = {}
     for device in (dev, torch.device("cpu")):
@@ -346,3 +418,73 @@ def test_serve_on_card_matches_cpu(paged):
         assert card_cache.stats == cpu_cache.stats
         assert card_cache.stats.pages_freed == \
             card_cache.stats.pages_allocated > 0
+
+
+@pytest.mark.gpu
+def test_serve_launcher_reduced_on_card():
+    """``python -m repro_torch.launch.serve --arch qwen3-4b --paged``: the
+    reduced config on the default device, the card, through the kernel."""
+    _cuda_or_skip()
+    cfg = reduced_config(get_config("qwen3-4b"))
+    before = native.LAUNCHES["flash_attention"]
+    completions, engine, cache = serve("qwen3-4b", paged=True, verbose=False)
+    torch.cuda.synchronize()
+    assert engine.model.cfg.head_dim == 16
+    assert native.LAUNCHES["flash_attention"] - before == \
+        cfg.n_layers * (engine.prefills + engine.decodes) > 0
+    assert len(completions) == 8
+    assert cache.stats.pages_freed == cache.stats.pages_allocated > 0
+
+
+def _random_pass_rows(rng, keys, p_pad, kinds):
+    """p_pad pass rows drawn from ``kinds`` (PASS_* flags, interleaved with
+    PAD rows): each query is a stored 64-bit key under a random mask of
+    about 6 bits, so a pass matches a few slots of most pages."""
+    n = keys.shape[0]
+    f = rng.choice(np.asarray(kinds, np.uint32), size=p_pad)
+    pick = keys[rng.integers(n, size=p_pad), rng.integers(512, size=p_pad)]
+    q = np.stack([(pick & 0xFFFFFFFF).astype(np.uint32),
+                  (pick >> np.uint64(32)).astype(np.uint32)], axis=1)
+    m = np.zeros_like(q)
+    for r in range(p_pad):
+        bits = rng.choice(64, size=6, replace=False)
+        for b in bits:
+            m[r, b // 32] |= np.uint32(1 << (b % 32))
+    q[f == PASS_PAD], m[f == PASS_PAD] = 0, 0
+    return q, m, f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_pages", [1, 37])
+@pytest.mark.parametrize("p_pad", [16, 128, 257, 600])
+@pytest.mark.parametrize("n_groups", [1, 2, 3])
+def test_sim_plan_groups_and_pass_counts(n_groups, p_pad, n_pages):
+    """Bit-exact against the plain version at G in {1, 2, 3} and P up to
+    600 (past one staging tile of 512 rows): group 0 mixes include,
+    exclude and PAD rows, group 1 has exclude rows only (all zero), group 2
+    is all PAD (all zero)."""
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(n_groups * 1000 + p_pad + n_pages)
+    keys = rng.integers(1, 2**64, (n_pages, 512), dtype=np.uint64)
+    kinds = [(PASS_INCLUDE, PASS_EXCLUDE, PASS_PAD), (PASS_EXCLUDE, PASS_PAD),
+             (PASS_PAD,)]
+    rows = [_random_pass_rows(rng, keys, p_pad, kinds[g])
+            for g in range(n_groups)]
+    rows[0][2][0] = PASS_INCLUDE
+    q, m, f = (np.stack([r[i] for r in rows]) for i in range(3))
+    ids = rng.integers(0, 4096, n_pages).astype(np.uint32)
+    seeds = _u32(rng, (n_pages,))
+    for randomized in (False, True):
+        s_lo, s_hi = _stream(ids, seeds) if randomized else (0, 0)
+        lo = (keys & 0xFFFFFFFF).astype(np.uint32) ^ s_lo
+        hi = (keys >> np.uint64(32)).astype(np.uint32) ^ s_hi
+        args = [words_to_tensor(a, dev) for a in (lo, hi, q, m, f, ids,
+                                                  seeds)]
+        before = native.LAUNCHES["sim_plan"]
+        got = sim_plan(*args, randomized=randomized)
+        torch.cuda.synchronize()
+        assert native.LAUNCHES["sim_plan"] == before + 1
+        plain = sim_plan_ref(*args, randomized=randomized)
+        ones = np.unpackbits(plain.cpu().numpy().view(np.uint8), axis=-1)
+        assert ones[0].any() and not ones[1:].any()
+        _check_equal([got], [plain])
