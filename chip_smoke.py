@@ -13,6 +13,10 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    the kernel's bound at the timed shapes and, for attention, PyTorch's
    ``scaled_dot_product_attention`` in its fastest form for each case as
    the library yardstick (timed only; the port never calls it).
+   ``sim_search`` and ``sim_lookup`` are also checked reading their pages
+   in place from an arena of the replay's size (32,768 rows, 128 MiB,
+   over the 50 MB L2), and timed cold there, 64 fresh random rows a
+   launch: the device work of a flush.
 3. Replays through ``repro_torch.frontend.replay`` on the ``batched``
    backend, each checked against a numpy oracle of serial semantics:
    YCSB-B split and fused (they must also agree), YCSB-E range scans
@@ -82,6 +86,10 @@ from repro_torch.kernels.sim_plan.ref import (plan_pass_rows,  # noqa: E402
 from repro_torch.kernels.sim_search.ops import sim_search  # noqa: E402
 from repro_torch.kernels.sim_search.ref import (sim_search_ref,  # noqa: E402
                                                 stream_planes)
+from repro_torch.kernels.timing import (ARENA_ROWS,  # noqa: E402
+                                        ITERS as COLD_ITERS, cold_ms,
+                                        device_ms, planted_lookup_queries,
+                                        random_arena, row_sets)
 from repro_torch.launch.serve import requests, serve  # noqa: E402
 from repro_torch.models.model import prefill  # noqa: E402
 from repro_torch.serve.batching import Request, ServeEngine  # noqa: E402
@@ -143,27 +151,6 @@ def log(msg: str) -> None:
 def u32(rng, shape):
     return rng.integers(0, 2**32, size=shape, dtype=np.uint64).astype(
         np.uint32)
-
-
-def device_ms(fn, iters: int) -> float:
-    """Device time per call of ``fn``, from CUDA events around ``iters``
-    back-to-back calls.  A spin kernel holds the stream while the host
-    queues the calls, so host launch overhead does not enter the time."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    host_s = time.perf_counter() - t0
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int((2 * host_s * iters + 0.005) * 2.0e9))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def max_abs_err(kernel_out, plain_out) -> int:
@@ -276,11 +263,112 @@ def check_lookup_hits(plain, want):
         raise AssertionError("a planted lookup row has an empty bitmap")
 
 
-def search_bound(n_pages, n_queries):
+# ------------------------------------------------ in place, cold arena
+def place(arena, rows, planes) -> None:
+    """Write a case's operands (lo, hi[, ids, seeds]) into ``rows`` of the
+    arena."""
+    idx = torch.as_tensor(rows, dtype=torch.int64, device=arena[0].device)
+    for a, p in zip(arena, planes):
+        a.index_copy_(0, idx, p)
+
+
+def repeat_and_pad(rows):
+    """The rows with row 4 repeated at 5 and the last four pad rows (row 0,
+    as ``PlaneStore`` pads)."""
+    rows = rows.copy()
+    rows[5], rows[-4:] = rows[4], 0
+    return rows
+
+
+def search_in_place(dev, arena, seed) -> int:
+    """``sim_search`` reading a case's 64 pages, planted hits included, in
+    place from random rows of the replay-sized arena: the plain version
+    through the rows equals it on the case's own planes, and the kernel
+    equals the plain version, also with a repeated row and pad rows."""
+    args, planted = search_case(dev, 64, 64, seed)
+    rows = np.random.default_rng(seed).choice(np.arange(1, ARENA_ROWS), 64,
+                                              replace=False)
+    place(arena, rows, [args[0], args[1], args[4], args[5]])
+    lo, hi, ids, seeds = arena
+    err = 0
+    for launch_rows in (rows, repeat_and_pad(rows)):
+        idx = words_to_tensor(launch_rows.astype(np.uint32), dev)
+        plain = sim_search_ref(lo, hi, args[2], args[3], ids, seeds,
+                               randomized=True, rows=idx)
+        err = max(err, max_abs_err(
+            [sim_search(lo, hi, args[2], args[3], ids, seeds,
+                        randomized=True, rows=idx)], [plain]))
+        if launch_rows is rows:
+            check_search_hits(plain, planted)
+            if max_abs_err([plain], [sim_search_ref(*args,
+                                                    randomized=True)]):
+                raise AssertionError("search through arena rows differs "
+                                     "from the case's planes")
+    return err
+
+
+def lookup_in_place(dev, arena, seed) -> int:
+    """``sim_fused_lookup`` reading a case's key and value pages in place
+    from random rows of the one arena, as ``search_in_place`` does."""
+    args, want = lookup_case(dev, 64, seed)
+    pick = np.random.default_rng(seed).choice(np.arange(1, ARENA_ROWS), 128,
+                                              replace=False)
+    key_rows, value_rows = pick[:64], pick[64:]
+    place(arena, key_rows, [args[0], args[1], args[6], args[7]])
+    place(arena, value_rows, [args[2], args[3]])
+    lo, hi, ids, seeds = arena
+    err = 0
+    for k, v in ((key_rows, value_rows),
+                 (repeat_and_pad(key_rows), repeat_and_pad(value_rows))):
+        kw = dict(randomized=True,
+                  key_rows=words_to_tensor(k.astype(np.uint32), dev),
+                  value_rows=words_to_tensor(v.astype(np.uint32), dev))
+        plain = sim_lookup_ref(lo, hi, lo, hi, args[4], args[5], ids, seeds,
+                               **kw)
+        err = max(err, max_abs_err(sim_fused_lookup(
+            lo, hi, lo, hi, args[4], args[5], ids, seeds, **kw), plain))
+        if k is key_rows:
+            check_lookup_hits(plain, want)
+            if max_abs_err(plain, sim_lookup_ref(*args, randomized=True)):
+                raise AssertionError("lookup through arena rows differs "
+                                     "from the case's planes")
+    return err
+
+
+def search_cold(dev, arena, q, m):
+    """Device ms of a search flush (the kernel in place) on 64 fresh random
+    arena rows a launch."""
+    sets = row_sets(COLD_ITERS + 2, 64, ARENA_ROWS, 11, dev)
+    lo, hi, ids, seeds = arena
+    return cold_ms(lambda i: sim_search(lo, hi, q, m, ids, seeds,
+                                        randomized=True, rows=sets[i]),
+                   COLD_ITERS, dev)
+
+
+def lookup_cold(dev, arena):
+    """Device ms of a lookup flush (the kernel in place) of 64 rows, fresh
+    random key and value rows a launch, 48 planted hits.  Returns the time
+    and one launch's slots."""
+    keys = row_sets(COLD_ITERS + 2, 64, ARENA_ROWS, 12, dev)
+    values = row_sets(COLD_ITERS + 2, 64, ARENA_ROWS, 13, dev,
+                      exclude=keys.cpu().numpy())
+    q = planted_lookup_queries(*arena, keys, 14)
+    m = torch.full((64, 2), -1, dtype=torch.int32, device=dev)
+    lo, hi, ids, seeds = arena
+
+    def in_place(i):
+        return sim_fused_lookup(lo, hi, lo, hi, q[i], m, ids, seeds,
+                                randomized=True, key_rows=keys[i],
+                                value_rows=values[i])
+    return cold_ms(in_place, COLD_ITERS, dev), in_place(0)[2]
+
+
+def search_bound(n_pages, n_queries, in_place=False):
+    """Work of one launch; ``in_place`` adds the (N,) row indices read."""
     ops = (n_pages * 512 * STREAM_OPS + n_queries * n_pages * 512 * MATCH_OPS
            + n_queries * n_pages * 16)                        # + ballots
     nbytes = (2 * n_pages * 512 * 4 + 2 * n_queries * 2 * 4 + 2 * n_pages * 4
-              + n_queries * n_pages * 16 * 4)
+              + n_queries * n_pages * 16 * 4 + in_place * n_pages * 4)
     return ops, nbytes
 
 
@@ -295,11 +383,14 @@ def gather_bound(bitmap, max_out):
     return ops, nbytes
 
 
-def lookup_bound(n_rows, slots):
+def lookup_bound(n_rows, slots, in_place=False):
+    """Work of one launch: the key planes, one 64 B value chunk a hit (the
+    value planes' prefetch into L2 is not counted), the outputs; ``in_place``
+    adds the two (B,) row indices read."""
     hits = int((tensor_to_words(slots) < 512).sum())
     ops = n_rows * 512 * (STREAM_OPS + MATCH_OPS) + n_rows * 16
     nbytes = (2 * n_rows * 512 * 4 + 2 * n_rows * 2 * 4 + 2 * n_rows * 4
-              + hits * 64 + n_rows * (64 + 64 + 4))
+              + hits * 64 + n_rows * (64 + 64 + 4) + in_place * n_rows * 8)
     return ops, nbytes
 
 
@@ -570,7 +661,9 @@ def kernel_checks(dev) -> dict:
     """Each kernel against its plain version on the card; times at the
     main path's largest burst shapes (64 queries, 64 pages or rows), beside
     the launch floor: the device time of an empty kernel launched the same
-    way (``torch.cuda._sleep(0)``)."""
+    way (``torch.cuda._sleep(0)``).  The times in the kernels line are warm
+    (the same rows launch after launch); the search and lookup are also
+    timed cold, on the log only."""
     floor_ms = device_ms(lambda: torch.cuda._sleep(0), 200)
     log(f"launch floor: {floor_ms:.6f} ms a launch (an empty kernel, "
         "back to back)")
@@ -584,7 +677,16 @@ def kernel_checks(dev) -> dict:
         check_search_hits(plain, planted)
         err = max(err, max_abs_err([sim_search(*args, randomized=True)],
                                    [plain]))
+    arena = random_arena(dev)                 # the replay's 32,768 rows
+    err = max(err, search_in_place(dev, arena, 5))
     args, _ = search_case(dev, 64, 64, 1)
+    cold = search_cold(dev, arena, args[2], args[3])
+    cold_bound = bound(*search_bound(64, 64, in_place=True))
+    log(f"kernel sim_search cold [Q=64 x N=64 fresh random rows a launch of "
+        f"a {ARENA_ROWS}-row arena, {COLD_ITERS} launches]: in place "
+        f"{cold:.6f} ms/launch (the flush's device work; "
+        f"{cold - floor_ms:.6f} above the launch floor); bound "
+        f"{cold_bound[0]:.6f} ms ({cold_bound[1]})")
     rows["sim_search"] = dict(
         max_abs_err=err,
         ms=device_ms(lambda: sim_search(*args, randomized=True), 200),
@@ -613,6 +715,16 @@ def kernel_checks(dev) -> dict:
         check_lookup_hits(plain, want)
         err = max(err, max_abs_err(sim_fused_lookup(*args, randomized=True),
                                    plain))
+    err = max(err, lookup_in_place(dev, arena, 6))
+    cold, slots = lookup_cold(dev, arena)
+    cold_bound = bound(*lookup_bound(64, slots, in_place=True))
+    log(f"kernel sim_lookup cold [B=64 fresh random key and value rows a "
+        f"launch of a {ARENA_ROWS}-row arena, "
+        f"{int((tensor_to_words(slots) < 512).sum())} hits, {COLD_ITERS} "
+        f"launches]: in place {cold:.6f} ms/launch (the flush's device "
+        f"work; {cold - floor_ms:.6f} above the launch floor); bound "
+        f"{cold_bound[0]:.6f} ms ({cold_bound[1]})")
+    del arena
     args, want = lookup_case(dev, 64, 3)
     slots = sim_fused_lookup(*args, randomized=True)[2]
     rows["sim_lookup"] = dict(
@@ -737,12 +849,14 @@ def oracle(wl, n_key_pages):
 
 def run_replay(label, wl, n_key_pages, n_chips, config):
     """One path: fresh chips, launch counts and peak device memory set to
-    0 just before the replay and read just after it."""
+    0 just before the replay and read just after it; the memory already
+    allocated then (earlier phases' leftovers) is logged apart."""
     pages_per_chip = -(-2 * n_key_pages // n_chips) + 1
     chips = SimChipArray(n_chips=n_chips, pages_per_chip=pages_per_chip,
                          device_seed=7)
     backend = TimedBackend(chips, n_load=2 * n_key_pages)
     torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     native.reset_launches()
     t0 = time.perf_counter()
@@ -760,7 +874,8 @@ def run_replay(label, wl, n_key_pages, n_chips, config):
         f"{rep.staged_bytes}, result_bytes {rep.result_bytes}, programs "
         f"{rep.programs}, write_flushes {rep.write_flushes}, "
         f"buffer_read_hits {rep.buffer_read_hits}, resident rows "
-        f"{backend.store.resident_rows}, peak device memory {peak} bytes")
+        f"{backend.store.resident_rows}, peak device memory {peak} bytes "
+        f"({before} allocated before the replay)")
     return rep, grew, backend, peak
 
 

@@ -10,11 +10,13 @@ bytes** host->device — only the query operands move, the analogue of the
 chip keeping operands in-array while only queries and 64 B bitmaps cross
 the bus (paper §III-B).
 
-At flush time the deferred queues stage into dense device operands:
+At flush time the deferred queues become device operands:
 
   * every *unique* page touched by a queued search becomes one arena-row
-    reference; the kernel regenerates the §IV-C1 randomization stream
-    from the row's address/seed operands (stored images are staged as-is);
+    index, and the kernel reads that row of the arena in place (one
+    host->device copy of the indices, no gather); it regenerates the
+    §IV-C1 randomization stream from the row's address/seed (stored
+    images are staged as-is);
   * every *unique* (query, mask) pair becomes one row of the (Q, 2) query
     operands — Q queries match against N pages in a single ``sim_search``
     launch, the §IV-E cross-page multi-query batch;
@@ -23,7 +25,8 @@ At flush time the deferred queues stage into dense device operands:
     the selected chunks happen host-side, batched over the whole burst;
   * queued lookups (Op.LOOKUP) run the fused lookup kernel: key-page
     search, first-matching-user-slot selection, and the paired value page's
-    same-slot chunk gather all happen in ONE launch;
+    same-slot chunk gather all happen in ONE launch, reading key and value
+    rows of the arena in place through one upload of both index sets;
   * queued plans (Op.PLAN) run the fused ``sim_plan`` kernel: every
     include/exclude pass of a §V-C range decomposition matches on the card
     and the OR/AND-NOT combine (paper Fig 10) happens before anything
@@ -349,16 +352,19 @@ class BatchedKernelBackend(MatchBackend):
             chip.counters.array_reads += 1
 
         n_pages = padded_rows(len(addrs), PAGE_BLOCK)
-        lo, hi, page_ids, page_seeds = self.store.take(rows, n_pages)
+        page_rows_idx, = self.store.upload_rows(rows, pad_to=n_pages)
         n_queries = len(q_pairs)
         q = np.zeros((next_pow2(n_queries), 2), dtype=np.uint32)
         m = np.zeros_like(q)
         q[:n_queries] = np.asarray(q_pairs, dtype=np.uint32)
         m[:n_queries] = np.asarray(m_pairs, dtype=np.uint32)
 
+        # The kernel reads the arena's rows in place: no gather copies.
+        lo, hi, ids, seeds = self.store.arena()
         out = sim_search(lo, hi, words_to_tensor(q, self.device),
-                         words_to_tensor(m, self.device), page_ids,
-                         page_seeds, randomized=True)  # (Qpad, Npad, 16)
+                         words_to_tensor(m, self.device), ids, seeds,
+                         randomized=True,
+                         rows=page_rows_idx)   # (Qpad, Npad, 16)
 
         self.stats.kernel_launches += 1
         self.stats.staged_pages += len(addrs)
@@ -437,16 +443,19 @@ class BatchedKernelBackend(MatchBackend):
 
         n = len(lookups)
         n_pad = padded_rows(n, LOOKUP_BLOCK)
-        klo, khi, kids, kseeds = self.store.take(k_rows, n_pad)
-        vlo, vhi, _, _ = self.store.take(v_rows, n_pad)
+        key_idx, value_idx = self.store.upload_rows(k_rows, v_rows,
+                                                    pad_to=n_pad)
         q = np.zeros((n_pad, 2), dtype=np.uint32)
         m = np.full((n_pad, 2), 0xFFFFFFFF, dtype=np.uint32)  # pad rows miss
         q[:n] = np.asarray([cmd.query for cmd, _ in lookups], np.uint32)
         m[:n] = np.asarray([cmd.mask for cmd, _ in lookups], np.uint32)
 
+        # Key and value pages are read in place from the one arena.
+        lo, hi, ids, seeds = self.store.arena()
         bm, val, slots = sim_fused_lookup(
-            klo, khi, vlo, vhi, words_to_tensor(q, self.device),
-            words_to_tensor(m, self.device), kids, kseeds, randomized=True)
+            lo, hi, lo, hi, words_to_tensor(q, self.device),
+            words_to_tensor(m, self.device), ids, seeds, randomized=True,
+            key_rows=key_idx, value_rows=value_idx)
 
         self.stats.kernel_launches += 1
         self.stats.lookups += n

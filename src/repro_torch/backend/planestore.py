@@ -151,9 +151,11 @@ class PlaneStore:
 
         The arena is updated in place with ``index_copy_``, where the JAX
         arrays were immutable and each update made a new array.  In-place
-        is safe for launches already queued: ``take`` copies rows out of
-        the arena, and the copy, the launch and this update run in stream
-        order on one CUDA stream.
+        is safe for work already queued — ``take``'s copies and the
+        kernels that read arena rows in place — because they and this
+        update run in stream order on one CUDA stream (PyTorch's current
+        stream of the arena's device): a launch queued before the update
+        reads the planes of its flush.
         """
         idx = torch.as_tensor([self._row[a] for a in addrs], dtype=torch.int64,
                               device=self.device)
@@ -175,12 +177,42 @@ class PlaneStore:
         self.staged_bytes += len(addrs) * PAGE_BYTES
 
     # ----------------------------------------------------------------- access
+    def arena(self):
+        """The arena tensors (lo (cap, 512), hi (cap, 512), ids (cap,),
+        seeds (cap,)) for kernels that read rows in place.  ``rows_for``
+        may grow the arena, which replaces them: fetch them after it."""
+        return self._lo, self._hi, self._ids, self._seeds
+
+    def upload_rows(self, *row_sets, pad_to: int):
+        """Arena row indices for kernels that read rows in place.
+
+        Each set is checked against the resident rows while it is still
+        numpy (the kernels trust their indices), padded to ``pad_to`` rows
+        with row 0 as ``take`` pads, and all sets cross host->device in ONE
+        copy.  Returns one (pad_to,) int32 device tensor per set.
+        """
+        stride = -(-pad_to // 4) * 4        # each set starts 16-byte aligned
+        r = np.zeros((len(row_sets), stride), np.int32)
+        for i, rows in enumerate(row_sets):
+            rows = np.asarray(rows, np.int64)
+            if len(rows) > pad_to:          # would be cut, not refused
+                raise ValueError(f"{len(rows)} rows do not fit in {pad_to}")
+            if rows.size and (rows.min() < 0
+                              or rows.max() >= self.resident_rows):
+                raise IndexError(f"arena rows {rows.min()}..{rows.max()} "
+                                 f"outside the {self.resident_rows} resident")
+            r[i, :len(rows)] = rows
+        idx = torch.from_numpy(r).to(self.device)
+        return tuple(idx[i, :pad_to] for i in range(len(row_sets)))
+
     def take(self, rows: np.ndarray, pad_to: int):
         """Device-side row gather, padded to ``pad_to`` rows (repeats row 0).
 
         Returns (lo (P, 512), hi (P, 512), ids (P,), seeds (P,)) as fresh
         contiguous device tensors — no page bytes cross the bus here, only
-        the row indices.
+        the row indices.  The plan and gather flushes use it; the search
+        and lookup kernels read the arena in place (``arena``,
+        ``upload_rows``) and copy nothing.
         """
         r = np.zeros(pad_to, np.int64)
         r[:len(rows)] = rows

@@ -38,10 +38,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry point -> argument types (pointers, ints, then device and stream).
 SIGNATURES = {
-    "sim_search_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "sim_search_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _P),
     "sim_gather_launch": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "sim_lookup_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                          _I, _P),
+    "sim_lookup_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _P),
     "sim_plan_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _P),
     "sim_fused_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -126,7 +127,8 @@ def library() -> ctypes.CDLL:
 
 def launch(entry: str, *args, device: torch.device) -> None:
     """Call C entry point ``entry`` on ``device``'s current stream; raise if
-    the launch is refused.  Tensor arguments pass as their data pointers."""
+    the launch is refused.  Tensor arguments pass as their data pointers,
+    ``None`` as a null pointer."""
     stream = torch.cuda.current_stream(device).cuda_stream
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     err = getattr(library(), entry)(*cargs, device.index, stream)

@@ -83,36 +83,47 @@ def sim_fused_pages(pages_bytes: np.ndarray, queries_u64, masks_u64, *,
 
 
 def sim_fused_lookup(klo, khi, vlo, vhi, queries, masks, key_ids, key_seeds,
-                     *, randomized: bool):
+                     *, randomized: bool, key_rows=None, value_rows=None):
     """Paired lookup burst: search key row i, gather value row i, 1 launch.
 
-    klo, khi, vlo, vhi: (B, 512) int32 key-page and value-page planes
+    klo, khi, vlo, vhi: (cap, 512) int32 key-page and value-page planes (one
+                        arena may be passed as both)
     queries, masks:     (B, 2) int32 per-row query and mask words
-    key_ids, key_seeds: (B,) int32 key-page flash addresses and seeds
+    key_ids, key_seeds: (cap,) int32 flash addresses and seeds of the key
+                        planes' rows
+    key_rows, value_rows: (B,) int32 rows of the key and value planes for
+                        row i, read in place; None means row i (cap = B)
     Returns (bitmaps (B, 16), value_words (B, 16) — randomized as stored,
-    slots (B,) int32 with 512 meaning "no user slot matched").
+    slots (B,) int32 with 512 meaning "no user slot matched").  The kernel
+    trusts the row indices: the caller keeps them in [0, cap).
     """
     if klo.device.type == "cpu":
         return sim_lookup_ref(klo, khi, vlo, vhi, queries, masks, key_ids,
-                              key_seeds, randomized=randomized)
+                              key_seeds, randomized=randomized,
+                              key_rows=key_rows, value_rows=value_rows)
     if klo.device.type != "cuda":
         raise ValueError(f"sim_fused_lookup: no implementation on "
                          f"{klo.device}")
     device = klo.device
-    b = klo.shape[0]
-    for name, t, shape in (("klo", klo, (b, 512)), ("khi", khi, (b, 512)),
-                           ("vlo", vlo, (b, 512)), ("vhi", vhi, (b, 512)),
-                           ("queries", queries, (b, 2)),
-                           ("masks", masks, (b, 2)),
-                           ("key_ids", key_ids, (b,)),
-                           ("key_seeds", key_seeds, (b,))):
+    b = queries.shape[0]
+    kcap = b if key_rows is None else klo.shape[0]
+    vcap = b if value_rows is None else vlo.shape[0]
+    operands = [("klo", klo, (kcap, 512)), ("khi", khi, (kcap, 512)),
+                ("vlo", vlo, (vcap, 512)), ("vhi", vhi, (vcap, 512)),
+                ("queries", queries, (b, 2)), ("masks", masks, (b, 2)),
+                ("key_ids", key_ids, (kcap,)),
+                ("key_seeds", key_seeds, (kcap,))]
+    for name, rows in (("key_rows", key_rows), ("value_rows", value_rows)):
+        if rows is not None:
+            operands.append((name, rows, (b,)))
+    for name, t, shape in operands:
         native.check_operand(name, t, shape, device)
     bm = torch.empty((b, 16), dtype=torch.int32, device=device)
     val = torch.empty((b, 16), dtype=torch.int32, device=device)
     slots = torch.empty((b,), dtype=torch.int32, device=device)
     if b:
         native.launch("sim_lookup_launch", klo, khi, vlo, vhi, queries, masks,
-                      key_ids, key_seeds, bm, val, slots, b, int(randomized),
-                      device=device)
+                      key_ids, key_seeds, key_rows, value_rows, bm, val,
+                      slots, b, int(randomized), device=device)
         native.LAUNCHES["sim_lookup"] += 1
     return bm, val, slots

@@ -12,8 +12,8 @@ import torch
 
 from repro_torch.kernels.layout import planes_to_chunk_words
 from repro_torch.kernels.sim_gather.ref import sim_gather_ref
-from repro_torch.kernels.sim_search.ref import (pack_bits, stream_planes,
-                                                to_i32, u32)
+from repro_torch.kernels.sim_search.ref import (pack_bits, select_rows,
+                                                stream_planes, to_i32, u32)
 
 NO_SLOT = 512            # first-match sentinel: no user slot matched
 SLOTS_PER_CHUNK = 8
@@ -51,14 +51,19 @@ def sim_fused_ref(lo, hi, queries, masks, page_ids, page_seeds, *,
 
 
 def sim_lookup_ref(klo, khi, vlo, vhi, queries, masks, key_ids, key_seeds, *,
-                   randomized: bool):
-    """Paired lookup: query i vs key row i, value gather from row i.
+                   randomized: bool, key_rows=None, value_rows=None):
+    """Paired lookup: query i vs key row i, value gather from value row i.
 
+    ``key_rows``/``value_rows`` (B,) int32 pick row i of the key and value
+    planes (and of ``key_ids``/``key_seeds``); None means row i itself.
     Returns (bitmaps (B, 16) int32 — every match, header slots included;
     value_words (B, 16) int32 — chunk ``min(slot >> 3, 63)`` of value row i,
     randomized as stored, zeros on a miss; slots (B,) int32 — first
     matching user slot (>= 8), 512 if none).
     """
+    klo, khi, key_ids, key_seeds = select_rows(key_rows, klo, khi, key_ids,
+                                               key_seeds)
+    vlo, vhi = select_rows(value_rows, vlo, vhi)
     d_lo, d_hi = u32(klo), u32(khi)
     if randomized:
         s_lo, s_hi = stream_planes(key_ids, key_seeds)

@@ -17,35 +17,42 @@ from .ref import U32, sim_search_ref, to_i32
 
 
 def sim_search(lo, hi, queries, masks, page_ids, page_seeds, *,
-               randomized: bool) -> torch.Tensor:
+               randomized: bool, rows=None) -> torch.Tensor:
     """Masked multi-query search over page planes -> (Q, N, 16) bitmaps.
 
-    lo, hi:     (N, 512) int32 word planes (uint32 bit patterns)
+    lo, hi:     (cap, 512) int32 word planes (uint32 bit patterns)
     queries:    (Q, 2) int32 (lo, hi) query words;  masks: (Q, 2) int32
-    page_ids:   (N,) int32 chip-local flash address of each page
-    page_seeds: (N,) int32 device seed of each page's chip
+    page_ids:   (cap,) int32 chip-local flash address of each page
+    page_seeds: (cap,) int32 device seed of each page's chip
     randomized: regenerate the §IV-C1 stream from ``page_ids``/``page_seeds``
                 and cancel it out of the stored words before matching
+    rows:       (N,) int32 rows of the planes to search, read in place (the
+                ``PlaneStore`` arena); None searches every row (N = cap)
 
-    Per-page addresses and seeds let one launch span chips.
+    Per-page addresses and seeds let one launch span chips.  The kernel
+    trusts ``rows``: the caller keeps them in [0, cap).
     """
     if lo.device.type == "cpu":
         return sim_search_ref(lo, hi, queries, masks, page_ids, page_seeds,
-                              randomized=randomized)
+                              randomized=randomized, rows=rows)
     if lo.device.type != "cuda":
         raise ValueError(f"sim_search: no implementation on {lo.device}")
     device = lo.device
-    n, q = lo.shape[0], queries.shape[0]
-    for name, t, shape in (("lo", lo, (n, 512)), ("hi", hi, (n, 512)),
-                           ("queries", queries, (q, 2)),
-                           ("masks", masks, (q, 2)),
-                           ("page_ids", page_ids, (n,)),
-                           ("page_seeds", page_seeds, (n,))):
+    cap, q = lo.shape[0], queries.shape[0]
+    n = cap if rows is None else rows.shape[0]
+    operands = [("lo", lo, (cap, 512)), ("hi", hi, (cap, 512)),
+                ("queries", queries, (q, 2)), ("masks", masks, (q, 2)),
+                ("page_ids", page_ids, (cap,)),
+                ("page_seeds", page_seeds, (cap,))]
+    if rows is not None:
+        operands.append(("rows", rows, (n,)))
+    for name, t, shape in operands:
         native.check_operand(name, t, shape, device)
     out = torch.empty((q, n, 16), dtype=torch.int32, device=device)
     if n and q:
         native.launch("sim_search_launch", lo, hi, queries, masks, page_ids,
-                      page_seeds, out, n, q, int(randomized), device=device)
+                      page_seeds, rows, out, n, q, int(randomized),
+                      device=device)
         native.LAUNCHES["sim_search"] += 1
     return out
 

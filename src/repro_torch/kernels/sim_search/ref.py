@@ -54,13 +54,25 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     return to_i32((b << shifts).sum(dim=-1))
 
 
+def select_rows(rows, *planes):
+    """The ``rows`` of each of ``planes`` (all of them for ``rows=None``)."""
+    if rows is None:
+        return planes
+    idx = rows.to(torch.int64)
+    return tuple(p.index_select(0, idx) for p in planes)
+
+
 def sim_search_ref(lo, hi, queries, masks, page_ids, page_seeds, *,
-                   randomized: bool) -> torch.Tensor:
+                   randomized: bool, rows=None) -> torch.Tensor:
     """Masked multi-query search.
 
-    lo, hi: (N, 512) int32 planes; queries, masks: (Q, 2) int32;
-    page_ids, page_seeds: (N,) int32.  Returns (Q, N, 16) int32 bitmaps.
+    lo, hi: (cap, 512) int32 planes; queries, masks: (Q, 2) int32;
+    page_ids, page_seeds: (cap,) int32; rows: (N,) int32 rows of the planes
+    to search, or None for all of them (N = cap).  Returns (Q, N, 16) int32
+    bitmaps.
     """
+    lo, hi, page_ids, page_seeds = select_rows(rows, lo, hi, page_ids,
+                                               page_seeds)
     d_lo, d_hi = u32(lo), u32(hi)
     if randomized:
         s_lo, s_hi = stream_planes(page_ids, page_seeds)

@@ -252,6 +252,103 @@ def test_take_and_take2d_gather_resident_rows(keys):
     assert int(tensor_to_words(seeds[2])) == chip.device_seed
 
 
+def _count_store_calls(monkeypatch):
+    """Count ``PlaneStore`` row gathers (``take``/``take2d``: one
+    ``index_select`` per arena tensor) and index uploads."""
+    calls = {"take": 0, "upload": 0}
+    select, upload = PlaneStore._select, PlaneStore.upload_rows
+
+    def counted_select(self, ridx):
+        calls["take"] += 1
+        return select(self, ridx)
+
+    def counted_upload(self, *row_sets, pad_to):
+        calls["upload"] += 1
+        return upload(self, *row_sets, pad_to=pad_to)
+    monkeypatch.setattr(PlaneStore, "_select", counted_select)
+    monkeypatch.setattr(PlaneStore, "upload_rows", counted_upload)
+    return calls
+
+
+def test_search_and_lookup_flushes_read_the_arena_in_place(keys,
+                                                           monkeypatch):
+    """A search or lookup flush copies no rows out of the arena: one index
+    upload, one launch, results equal to the JAX package's; a gather flush
+    still gathers."""
+    calls = _count_store_calls(monkeypatch)
+    port, ref = _pair(keys)
+    got, want = _submit_both(port, ref, _search_args(keys, 3), "search")
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.bitmap_words, b.bitmap_words)
+    assert calls == {"take": 0, "upload": 1}
+    cmds = [Command.lookup(p, N_PAGES - 1 - p, int(keys[p][7]))
+            for p in range(N_PAGES)]
+    got, want = _submit_both(port, ref, cmds, "lookup")
+    for a, b in zip(got, want):
+        assert (a.value_slot, a.value, a.parity_ok) == \
+            (b.value_slot, b.value, b.parity_ok)
+        assert a.value_slot is not None
+    assert calls == {"take": 0, "upload": 2}
+    _submit_both(port, ref, [Command.gather(2, 0b101)], "gather")
+    assert calls == {"take": 1, "upload": 2}
+    assert port.stats.kernel_launches == 3
+    _same_stats(port, ref)
+
+
+def test_in_place_reads_past_the_first_arena_block():
+    """40 resident pages (the arena grows past its first 32-row block
+    between flushes): searches and lookups through rows past 32, repeated
+    pages and interleaved key/value pages equal the JAX package's."""
+    keys = [np.random.default_rng(p).integers(1, 2**62, 100, dtype=np.uint64)
+            for p in range(40)]
+    port = SimChipArray(n_chips=5, pages_per_chip=8, device_seed=3)
+    ref = JSimChipArray(n_chips=5, pages_per_chip=8, device_seed=3)
+    for p, k in enumerate(keys):
+        port.program_entries(p, k)
+        ref.program_entries(p, k)
+    port, ref = BatchedKernelBackend(port, device="cpu"), JBatched(ref)
+    for lo_page in (0, 20):
+        cmds = [Command.search(p, int(keys[p][p % 100]))
+                for p in range(lo_page, lo_page + 20)]
+        cmds += [Command.search(37, int(keys[37][1]), 2**32 - 1)] * 2
+        got, want = _submit_both(port, ref, cmds, "search")
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.bitmap_words, b.bitmap_words)
+            assert a.match_count >= 1
+    cmds = [Command.lookup(p, p + 1 if p % 2 == 0 else p - 1,
+                           int(keys[p][5]))
+            for p in range(30, 40)] + [Command.lookup(39, 38, 12345)]
+    got, want = _submit_both(port, ref, cmds, "lookup")
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.search.bitmap_words,
+                                      b.search.bitmap_words)
+        assert (a.value_slot, a.value, a.parity_ok) == \
+            (b.value_slot, b.value, b.parity_ok)
+    assert port.store.resident_rows == 40
+    _same_stats(port, ref)
+
+
+def test_upload_rows_pads_checks_and_uploads_once(keys):
+    port, _ = _pair(keys)
+    store = port.store
+    rows = store.rows_for([4, 1, 7])
+    k, v = store.upload_rows(rows, rows[::-1], pad_to=6)
+    assert k.dtype == torch.int32 and k.shape == v.shape == (6,)
+    assert k.is_contiguous() and v.is_contiguous()
+    np.testing.assert_array_equal(k.numpy(), list(rows) + [0, 0, 0])
+    np.testing.assert_array_equal(v.numpy(), list(rows[::-1]) + [0, 0, 0])
+    assert v.data_ptr() % 16 == 0 and k.untyped_storage().data_ptr() == \
+        v.untyped_storage().data_ptr()               # one upload
+    with pytest.raises(IndexError):
+        store.upload_rows([store.resident_rows], pad_to=4)
+    with pytest.raises(IndexError):
+        store.upload_rows([-1], pad_to=4)
+    with pytest.raises(ValueError):
+        store.upload_rows(rows, pad_to=2)
+    lo, hi, ids, seeds = store.arena()
+    assert lo.shape == (store._cap, 512) and ids.shape == (store._cap,)
+
+
 # ------------------------------------------------------------ device guards
 
 def test_no_device_means_cuda_and_raises_without_a_card(monkeypatch):

@@ -488,3 +488,143 @@ def test_sim_plan_groups_and_pass_counts(n_groups, p_pad, n_pages):
         ones = np.unpackbits(plain.cpu().numpy().view(np.uint8), axis=-1)
         assert ones[0].any() and not ones[1:].any()
         _check_equal([got], [plain])
+
+
+# ------------------------------------------------ in place: arena row indices
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_pages,n_queries", [(1, 1), (5, 5), (13, 13),
+                                               (64, 64), (70, 5), (5, 70),
+                                               (3, 130), (64, 200)])
+def test_sim_search_in_place_matches_plain(n_pages, n_queries):
+    """Pages read through arena rows (repeats, pad rows of row 0, rows past
+    the first 32), query counts past one 64-query tile and ragged last
+    tiles; the last query is a pad query (q = 0, m = 0) that matches
+    every slot."""
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(n_pages * 7 + n_queries)
+    cap = 2 * n_pages + 40
+    lo, hi = _u32(rng, (cap, 512)), _u32(rng, (cap, 512))
+    ids = rng.integers(0, 4096, cap).astype(np.uint32)
+    seeds = _u32(rng, (cap,))
+    rows = rng.integers(1, cap, n_pages).astype(np.int32)
+    if n_pages > 2:
+        rows[1], rows[-1] = rows[0], 0            # a repeat, a pad row
+    q, m = _u32(rng, (n_queries, 2)), _u32(rng, (n_queries, 2))
+    m[1::2] = [0xF, 0]
+    if n_queries > 1:
+        q[-1], m[-1] = 0, 0
+    r, s = int(rows[0]), 77
+    for randomized in (False, True):
+        s_lo, s_hi = _stream(ids, seeds) if randomized else (
+            np.zeros_like(lo), np.zeros_like(hi))
+        q[0] = [lo[r, s] ^ s_lo[r, s], hi[r, s] ^ s_hi[r, s]]
+        m[0] = [0xFFFFFFFF, 0xFFFFFFFF]
+        args = [words_to_tensor(a, dev) for a in (lo, hi, q, m, ids, seeds)]
+        idx = words_to_tensor(rows.view(np.uint32), dev)
+        before = native.LAUNCHES["sim_search"]
+        got = sim_search(*args, randomized=randomized, rows=idx)
+        torch.cuda.synchronize()
+        assert native.LAUNCHES["sim_search"] == before + 1
+        plain = sim_search_ref(*args, randomized=randomized, rows=idx)
+        assert got.shape == (n_queries, n_pages, 16)
+        assert (int(plain[0, 0, s // 32]) >> (s % 32)) & 1
+        if n_queries > 1:
+            assert (plain[-1] == -1).all()        # the pad query
+        _check_equal([got], [plain])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_rows", [1, 5, 13, 64, 70])
+def test_sim_lookup_in_place_matches_plain(n_rows):
+    """Key and value pages read through two row indices into one arena:
+    user-slot hits (a header slot holding the same key loses), header-only
+    misses, random misses and pad rows (key and value row 0, all-ones
+    mask, as the backend pads); value rows repeat and interleave with key
+    rows."""
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(n_rows + 100)
+    cap = 2 * n_rows + 40
+    lo, hi = _u32(rng, (cap, 512)), _u32(rng, (cap, 512))
+    ids = rng.integers(0, 4096, cap).astype(np.uint32)
+    seeds = _u32(rng, (cap,))
+    key_rows = rng.choice(np.arange(1, cap), n_rows,
+                          replace=False).astype(np.int32)
+    value_rows = rng.integers(0, cap, n_rows).astype(np.int32)
+    if n_rows > 4:
+        key_rows[-1] = value_rows[-1] = 0          # a pad row
+        value_rows[1] = key_rows[0]                # interleave
+    m = np.full((n_rows, 2), 0xFFFFFFFF, np.uint32)
+    for randomized in (False, True):
+        s_lo, s_hi = _stream(ids, seeds) if randomized else (
+            np.zeros_like(lo), np.zeros_like(hi))
+        q = _u32(rng, (n_rows, 2))
+        want = np.full(n_rows, 512)
+        for i, r in enumerate(key_rows):
+            if r == 0:
+                q[i] = 0
+                continue
+            kind = i % 3                           # hit, header-only, miss
+            if kind == 2:
+                continue
+            s = int(rng.integers(8, 512)) if kind == 0 else 3
+            q[i] = [lo[r, s] ^ s_lo[r, s], hi[r, s] ^ s_hi[r, s]]
+            lo[r, 3], hi[r, 3] = q[i, 0] ^ s_lo[r, 3], q[i, 1] ^ s_hi[r, 3]
+            if kind == 0:
+                want[i] = s
+        args = [words_to_tensor(a, dev) for a in (lo, hi, lo, hi, q, m, ids,
+                                                  seeds)]
+        kw = dict(randomized=randomized,
+                  key_rows=words_to_tensor(key_rows.view(np.uint32), dev),
+                  value_rows=words_to_tensor(value_rows.view(np.uint32), dev))
+        before = native.LAUNCHES["sim_lookup"]
+        got = sim_fused_lookup(*args, **kw)
+        torch.cuda.synchronize()
+        assert native.LAUNCHES["sim_lookup"] == before + 1
+        plain = sim_lookup_ref(*args, **kw)
+        np.testing.assert_array_equal(plain[2].cpu().numpy(), want)
+        _check_equal(got, plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["search", "lookup"])
+def test_reprogram_between_flush_and_drain_on_card(kind):
+    """A burst flushed before its page is reprogrammed, restaged and the
+    arena grown (by the next flush, queued after the launch on the same
+    stream) resolves against the planes of its flush, as on the CPU."""
+    _cuda_or_skip()
+    old = np.arange(1, 301, dtype=np.uint64) * 7
+    new = np.arange(1, 301, dtype=np.uint64) * 11
+    results = {}
+    for device in (None, "cpu"):               # None: the card
+        arr = SimChipArray(n_chips=5, pages_per_chip=8, device_seed=4)
+        for p in range(40):
+            arr.program_entries(p, old + p)
+        be = make_backend("batched", arr, device=device)
+        cmd = (Command.search(1, int(old[9] + 1)) if kind == "search"
+               else Command.lookup(1, 2, int(old[9] + 1)))
+        submit = getattr(be, f"submit_{kind}")
+        first = [submit(cmd)]
+        for p in range(2, 4):                   # 4 resident rows of 32
+            first.append(submit(Command.search(p, 1) if kind == "search"
+                                else Command.lookup(p, p + 1, 1)))
+        be.flush()
+        arr.program_entries(1, new + 1)
+        arr.program_entries(2, new + 2)
+        second = [submit(cmd)] + [be.submit_search(Command.search(p, 1))
+                                  for p in range(40)]
+        be.flush()                             # restages rows 1, 2; grows
+        assert be.store.resident_rows == 40
+        results[device] = [t.result() for t in first + second]
+    card, cpu = results[None], results["cpu"]
+    if kind == "search":
+        assert card[0].match_count == 1 and card[3].match_count == 0
+    else:
+        assert card[0].value_slot == 8 + 9 and card[0].parity_ok
+        assert card[3].value_slot is None
+    for a, b in zip(card, cpu):
+        if kind == "lookup" and hasattr(a, "search"):
+            assert (a.value_slot, a.value, a.parity_ok) == \
+                (b.value_slot, b.value, b.parity_ok)
+            a, b = a.search, b.search
+        np.testing.assert_array_equal(a.bitmap_words, b.bitmap_words)

@@ -9,6 +9,7 @@ The CUDA kernels themselves are held against the plain versions on the
 card in tests/test_torch_gpu.py.
 """
 import jax  # noqa: F401  (both packages in one process, JAX on the CPU)
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -24,6 +25,7 @@ from repro_torch.kernels.sim_fused.ops import sim_fused, sim_fused_lookup
 from repro_torch.kernels.sim_gather.ops import sim_gather
 from repro_torch.kernels.sim_plan.ops import sim_plan
 from repro_torch.kernels.sim_search.ops import sim_search
+from repro_torch.kernels.sim_search.ref import stream_planes
 
 CPU = torch.device("cpu")
 
@@ -166,3 +168,122 @@ def test_wrappers_refuse_other_devices():
     meta = torch.empty((2, 512), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         sim_search(meta, meta, meta, meta, meta, meta, randomized=True)
+
+
+# ------------------------------------------------ in place: arena row indices
+# Index sets into an arena of ARENA rows: a repeated row, pad rows repeating
+# row 0 (as ``PlaneStore`` pads), rows past the first 32.
+ARENA = 80
+ROW_SETS = {
+    "repeats": [5, 5, 7, 5, 40, 7],
+    "pad_rows": [3, 9, 21, 0, 0, 0, 0, 0],
+    "past_32": [33, 50, 79, 64, 35, 41, 32],
+}
+
+
+def _stream_words(ids, seeds):
+    """The §IV-C1 stream planes of the plain version, as numpy uint32."""
+    s_lo, s_hi = stream_planes(_t(ids), _t(seeds))
+    return s_lo.numpy().astype(np.uint32), s_hi.numpy().astype(np.uint32)
+
+
+@pytest.mark.parametrize("randomized", [False, True])
+@pytest.mark.parametrize("n_queries", [1, 5])
+@pytest.mark.parametrize("kind", sorted(ROW_SETS))
+def test_sim_search_rows_match_pallas_on_gathered_planes(kind, n_queries,
+                                                         randomized):
+    lo, hi, q, m, ids, seeds = _search_inputs(ARENA, n_queries,
+                                              len(kind) + n_queries)
+    rows = np.asarray(ROW_SETS[kind], np.int32)
+    # Plant query 0 on slot 99 of the launch's second page, in the domain
+    # the kernel matches in.
+    r = rows[1]
+    s_lo, s_hi = _stream_words(ids, seeds) if randomized else (
+        np.zeros_like(lo), np.zeros_like(hi))
+    q[0] = [lo[r, 99] ^ s_lo[r, 99], hi[r, 99] ^ s_hi[r, 99]]
+    take = lambda a: np.asarray(jnp.take(jnp.asarray(a), rows, axis=0))
+    want = np.asarray(jax_search(take(lo), take(hi), q, m, page_block=16,
+                                 randomized=randomized, page_ids=take(ids),
+                                 page_seeds=take(seeds)))
+    got = sim_search(_t(lo), _t(hi), _t(q), _t(m), _t(ids), _t(seeds),
+                     randomized=randomized, rows=_t(rows))
+    assert got.shape == (n_queries, len(rows), 16)
+    np.testing.assert_array_equal(tensor_to_words(got), want)
+    assert (int(want[0, 1, 99 // 32]) >> (99 % 32)) & 1
+
+
+@pytest.mark.parametrize("randomized", [False, True])
+def test_sim_search_rows_none_is_every_row(randomized):
+    lo, hi, q, m, ids, seeds = _search_inputs(37, 5, 3)
+    args = [_t(a) for a in (lo, hi, q, m, ids, seeds)]
+    want = np.asarray(jax_search(lo, hi, q, m, page_block=16,
+                                 randomized=randomized, page_ids=ids,
+                                 page_seeds=seeds))
+    every = sim_search(*args, randomized=randomized,
+                       rows=_t(np.arange(37, dtype=np.int32)))
+    np.testing.assert_array_equal(
+        tensor_to_words(sim_search(*args, randomized=randomized)), want)
+    np.testing.assert_array_equal(tensor_to_words(every), want)
+
+
+LOOKUP_ROW_SETS = {
+    "repeats": ([4, 4, 9, 4, 30, 9], [50, 50, 50, 8, 61, 8]),
+    "pad_rows": ([3, 17, 22, 0, 0, 0, 0, 0], [11, 12, 13, 0, 0, 0, 0, 0]),
+    "past_32": ([33, 70, 79, 40, 64], [35, 78, 32, 41, 65]),
+    "interleaved": ([10, 11, 12, 13, 14, 15], [11, 10, 13, 12, 15, 14]),
+}
+
+
+@pytest.mark.parametrize("randomized", [False, True])
+@pytest.mark.parametrize("kind", sorted(LOOKUP_ROW_SETS))
+def test_sim_lookup_rows_match_pallas_on_gathered_planes(kind, randomized):
+    rng = np.random.default_rng(len(kind))
+    lo, hi = _u32(rng, (ARENA, 512)), _u32(rng, (ARENA, 512))
+    ids = rng.integers(0, 4096, ARENA).astype(np.uint32)
+    seeds = _u32(rng, (ARENA,))
+    key_rows, value_rows = (np.asarray(r, np.int32)
+                            for r in LOOKUP_ROW_SETS[kind])
+    s_lo, s_hi = _stream_words(ids, seeds) if randomized else (
+        np.zeros_like(lo), np.zeros_like(hi))
+    # Row i of the burst by i % 3: 0 — a user slot hit; 1 — a header slot
+    # (3) hit only, a miss; 2 — a random query, a miss.  Pad rows (key
+    # row 0) take all-ones masks and zero queries, as the backend pads.
+    b = len(key_rows)
+    q, m = _u32(rng, (b, 2)), np.full((b, 2), 0xFFFFFFFF, np.uint32)
+    for i, r in enumerate(key_rows):
+        if r == 0:
+            q[i] = 0
+        elif i % 3 != 2:
+            s = int(rng.integers(8, 512)) if i % 3 == 0 else 3
+            q[i] = [lo[r, s] ^ s_lo[r, s], hi[r, s] ^ s_hi[r, s]]
+    take = lambda a, rows: np.asarray(jnp.take(jnp.asarray(a), rows, axis=0))
+    want = jax_lookup(take(lo, key_rows), take(hi, key_rows),
+                      take(lo, value_rows), take(hi, value_rows), q, m,
+                      row_block=4, randomized=randomized,
+                      key_ids=take(ids, key_rows),
+                      key_seeds=take(seeds, key_rows))
+    got = sim_fused_lookup(*(_t(a) for a in (lo, hi, lo, hi, q, m, ids,
+                                             seeds)),
+                           randomized=randomized, key_rows=_t(key_rows),
+                           value_rows=_t(value_rows))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(tensor_to_words(g),
+                                      np.asarray(w).view(np.uint32))
+    slots = got[2].numpy()
+    assert (slots[(np.arange(b) % 3 == 0) & (key_rows != 0)] < 512).all()
+    assert (slots[np.arange(b) % 3 != 0] == 512).all()
+    assert (slots[key_rows == 0] == 512).all()
+
+
+def test_sim_lookup_rows_none_is_every_row():
+    klo, khi, vlo, vhi, q, m, ids, seeds = _lookup_inputs(13, 5)
+    want = jax_lookup(klo, khi, vlo, vhi, q, m, row_block=4, randomized=False,
+                      key_ids=ids, key_seeds=seeds)
+    args = [_t(a) for a in (klo, khi, vlo, vhi, q, m, ids, seeds)]
+    every = _t(np.arange(13, dtype=np.int32))
+    for got in (sim_fused_lookup(*args, randomized=False),
+                sim_fused_lookup(*args, randomized=False, key_rows=every,
+                                 value_rows=every)):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(tensor_to_words(g),
+                                          np.asarray(w).view(np.uint32))
