@@ -13,10 +13,10 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    the kernel's bound at the timed shapes and, for attention, PyTorch's
    ``scaled_dot_product_attention`` in its fastest form for each case as
    the library yardstick (timed only; the port never calls it).
-   ``sim_search`` and ``sim_lookup`` are also checked reading their pages
-   in place from an arena of the replay's size (32,768 rows, 128 MiB,
-   over the 50 MB L2), and timed cold there, 64 fresh random rows a
-   launch: the device work of a flush.
+   ``sim_search``, ``sim_lookup`` and ``sim_gather`` are also checked
+   reading their pages in place from an arena of the replay's size
+   (32,768 rows, 128 MiB, over the 50 MB L2), and timed cold there, 64
+   fresh random rows a launch: the device work of a flush.
 3. Replays through ``repro_torch.frontend.replay`` on the ``batched``
    backend, each checked against a numpy oracle of serial semantics:
    YCSB-B split and fused (they must also agree), YCSB-E range scans
@@ -212,13 +212,29 @@ def check_search_hits(plain, planted):
         raise AssertionError(f"search check has too few hits: {bits}")
 
 
-def gather_case(dev, n_pages, seed):
+def one_chunk_bitmaps(rng, n_pages):
+    """(N, 2) uint32 chunk bitmaps selecting one random chunk a row, as a
+    replay's gathers do (the chunk of the hit)."""
+    j = rng.integers(0, 64, n_pages)
+    bm = np.zeros((n_pages, 2), np.uint32)
+    bm[np.arange(n_pages), j // 32] = np.uint32(1) << (j % 32).astype(
+        np.uint32)
+    return bm
+
+
+def gather_case(dev, n_pages, seed, one_chunk=False):
+    """Random page planes (lo, hi) and chunk bitmaps: about 32 of 64 chunks
+    a row (overflowing a small ``max_out``), one row empty and one all 64;
+    with ``one_chunk``, one random chunk a row, the replay's shape."""
     rng = np.random.default_rng(seed)
-    bm = u32(rng, (n_pages, 2))               # ~32 of 64 chunks: overflows 4
-    bm[1] = 0                                 # an empty selection
-    bm[2] = 0xFFFFFFFF                        # all 64 chunks
-    return (words_to_tensor(u32(rng, (n_pages, 64, 16)), dev),
-            words_to_tensor(bm, dev))
+    planes = [u32(rng, (n_pages, 512)) for _ in range(2)]
+    if one_chunk:
+        bm = one_chunk_bitmaps(rng, n_pages)
+    else:
+        bm = u32(rng, (n_pages, 2))
+        bm[1] = 0                             # an empty selection
+        bm[2] = 0xFFFFFFFF                    # all 64 chunks
+    return [words_to_tensor(a, dev) for a in (*planes, bm)]
 
 
 def lookup_case(dev, n_rows, seed):
@@ -335,6 +351,31 @@ def lookup_in_place(dev, arena, seed) -> int:
     return err
 
 
+def gather_in_place(dev, arena, seed) -> int:
+    """``sim_gather`` reading a case's 64 pages in place from random rows of
+    the replay-sized arena, as ``search_in_place`` does, at max_out 64 and
+    4; repeated rows and pad rows (row 0, bitmap 0: they gather nothing)
+    too."""
+    lo_c, hi_c, bm = gather_case(dev, 64, seed)
+    rows = np.random.default_rng(seed).choice(np.arange(1, ARENA_ROWS), 64,
+                                              replace=False)
+    place(arena, rows, [lo_c, hi_c])
+    lo, hi = arena[:2]
+    err = 0
+    for launch_rows in (rows, repeat_and_pad(rows)):
+        idx = words_to_tensor(launch_rows.astype(np.uint32), dev)
+        sel = torch.where(idx[:, None] == 0, 0, bm)
+        for max_out in (64, 4):
+            plain = sim_gather_ref(lo, hi, sel, max_out, rows=idx)
+            err = max(err, max_abs_err(
+                sim_gather(lo, hi, sel, max_out, rows=idx), plain))
+            if launch_rows is rows and max_abs_err(
+                    plain, sim_gather_ref(lo_c, hi_c, sel, max_out)):
+                raise AssertionError("gather through arena rows differs "
+                                     "from the case's planes")
+    return err
+
+
 def search_cold(dev, arena, q, m):
     """Device ms of a search flush (the kernel in place) on 64 fresh random
     arena rows a launch."""
@@ -363,6 +404,19 @@ def lookup_cold(dev, arena):
     return cold_ms(in_place, COLD_ITERS, dev), in_place(0)[2]
 
 
+def gather_cold(dev, arena):
+    """Device ms of a gather flush (the kernel in place) of 64 rows, fresh
+    random arena rows a launch, one chunk selected a row, max_out = 64.
+    Returns the time and one launch's bitmap."""
+    sets = row_sets(COLD_ITERS + 2, 64, ARENA_ROWS, 15, dev)
+    rng = np.random.default_rng(16)
+    bms = words_to_tensor(np.stack([one_chunk_bitmaps(rng, 64)
+                                    for _ in range(COLD_ITERS + 2)]), dev)
+    lo, hi = arena[:2]
+    return cold_ms(lambda i: sim_gather(lo, hi, bms[i], 64, rows=sets[i]),
+                   COLD_ITERS, dev), bms[0]
+
+
 def search_bound(n_pages, n_queries, in_place=False):
     """Work of one launch; ``in_place`` adds the (N,) row indices read."""
     ops = (n_pages * 512 * STREAM_OPS + n_queries * n_pages * 512 * MATCH_OPS
@@ -372,14 +426,16 @@ def search_bound(n_pages, n_queries, in_place=False):
     return ops, nbytes
 
 
-def gather_bound(bitmap, max_out):
+def gather_bound(bitmap, max_out, in_place=False):
+    """Work of one launch: the bitmaps, the kept chunks read once, the
+    outputs written once; ``in_place`` adds the (N,) row indices read."""
     bm = tensor_to_words(bitmap).astype(np.uint64)
     counts = np.array([bin(int(lo) | (int(hi) << 32)).count("1")
                        for lo, hi in bm])
     n = bm.shape[0]
     ops = n * 64 * 4                          # shift, test, popcount, compare
     nbytes = (n * 8 + int(np.minimum(counts, max_out).sum()) * 64
-              + n * max_out * 64 + n * 4)
+              + n * max_out * 64 + n * 4 + in_place * n * 4)
     return ops, nbytes
 
 
@@ -506,7 +562,8 @@ def fused_case(dev, n_pages, n_queries, seed):
 def check_fused_hits(plain, args, planted, max_out):
     """The plain version holds the planted hits, their chunks gathered as
     stored; the mask-0 query counts 64 chunks on every page and gathers
-    chunks 0..max_out-1; the 4-bit masks overflow ``max_out``."""
+    chunks 0..max_out-1 (zero rows past the 64th); the 4-bit masks (about
+    26 chunks a page) overflow a ``max_out`` of 16 or less."""
     bm, out, cnt = (tensor_to_words(t) for t in plain)
     cnt = cnt.view(np.int32)
     chunks = tensor_to_words(planes_to_chunk_words(args[0], args[1]))
@@ -517,11 +574,13 @@ def check_fused_hits(plain, args, planted, max_out):
         if not (rows == chunks[p, s // 8]).all(axis=1).any():
             raise AssertionError(f"planted fused hit {(i, p, s)}: its chunk "
                                  "was not gathered")
+    kept = min(max_out, 64)                   # rows past 64 stay zero
     if not ((cnt[-1] == 64).all()
-            and np.array_equal(out[-1], chunks[:, :max_out])):
+            and np.array_equal(out[-1, :, :kept], chunks[:, :kept])
+            and not out[-1, :, kept:].any()):
         raise AssertionError("the mask-0 query did not select and gather "
                              "every chunk")
-    if cnt.shape[0] > 2 and not (cnt[1] > max_out).any():
+    if cnt.shape[0] > 2 and max_out <= 16 and not (cnt[1] > max_out).any():
         raise AssertionError("no fused cell overflowed max_out")
 
 
@@ -697,16 +756,32 @@ def kernel_checks(dev) -> dict:
 
     err = 0
     for max_out in (64, 4):
-        chunks, bm = gather_case(dev, 64, max_out)
-        err = max(err, max_abs_err(sim_gather(chunks, bm, max_out),
-                                   sim_gather_ref(chunks, bm, max_out)))
-    chunks, bm = gather_case(dev, 64, 2)
+        args = gather_case(dev, 64, max_out)
+        err = max(err, max_abs_err(sim_gather(*args, max_out),
+                                   sim_gather_ref(*args, max_out)))
+    args = gather_case(dev, 64, 2)
+    ms = device_ms(lambda: sim_gather(*args, 64), 200)
+    wide_bound = bound(*gather_bound(args[2], 64))
+    log(f"kernel sim_gather [N=64, max_out=64, ~32 chunks selected a row "
+        f"(one 0, one 64)]: {ms:.6f} ms/launch ({ms - floor_ms:.6f} above "
+        f"the launch floor), bound {wide_bound[0]:.6f} ms ({wide_bound[1]})")
+    err = max(err, gather_in_place(dev, arena, 7))
+    cold, bm = gather_cold(dev, arena)
+    cold_bound = bound(*gather_bound(bm, 64, in_place=True))
+    log(f"kernel sim_gather cold [N=64 fresh random rows a launch of a "
+        f"{ARENA_ROWS}-row arena, one chunk selected a row, max_out=64, "
+        f"{COLD_ITERS} launches]: in place {cold:.6f} ms/launch (the flush's "
+        f"device work; {cold - floor_ms:.6f} above the launch floor); bound "
+        f"{cold_bound[0]:.6f} ms ({cold_bound[1]})")
+    args = gather_case(dev, 64, 3, one_chunk=True)
+    err = max(err, max_abs_err(sim_gather(*args, 64),
+                               sim_gather_ref(*args, 64)))
     rows["sim_gather"] = dict(
         max_abs_err=err,
-        ms=device_ms(lambda: sim_gather(chunks, bm, 64), 200),
-        plain_ms=device_ms(lambda: sim_gather_ref(chunks, bm, 64), 20),
-        shape="N=64, max_out=64, ~32 chunks selected a row (one 0, one 64)",
-        bound=bound(*gather_bound(bm, 64)))
+        ms=device_ms(lambda: sim_gather(*args, 64), 200),
+        plain_ms=device_ms(lambda: sim_gather_ref(*args, 64), 20),
+        shape="replay burst: N=64, one chunk selected a row, max_out=64",
+        bound=bound(*gather_bound(args[2], 64)))
 
     err = 0
     for n_rows in (64, 13):
@@ -765,7 +840,8 @@ def kernel_checks(dev) -> dict:
         work=timed["work"])
 
     err = 0
-    for n_pages, n_queries, max_out in ((64, 8, 16), (17, 3, 4), (5, 2, 64)):
+    for n_pages, n_queries, max_out in ((64, 8, 16), (17, 3, 4), (5, 2, 64),
+                                        (33, 17, 16), (7, 5, 80)):
         args, planted = fused_case(dev, n_pages, n_queries,
                                    n_pages + n_queries)
         kw = dict(max_out=max_out, randomized=True, page_ids=args[4],
@@ -773,6 +849,20 @@ def kernel_checks(dev) -> dict:
         plain = sim_fused_ref(*args, max_out=max_out, randomized=True)
         check_fused_hits(plain, args, planted, max_out)
         err = max(err, max_abs_err(sim_fused(*args[:4], **kw), plain))
+    args, _ = fused_case(dev, 4, 2, 4)        # the quickstart's shape
+    kw = dict(max_out=4, randomized=True, page_ids=args[4],
+              page_seeds=args[5])
+    qs = (args[0], args[1], args[2][:1], args[3][:1])
+    err = max(err, max_abs_err(sim_fused(*qs, **kw), sim_fused_ref(
+        *qs, *args[4:], max_out=4, randomized=True)))
+    ms = device_ms(lambda: sim_fused(*qs, **kw), 200)
+    plain_ms = device_ms(lambda: sim_fused_ref(*qs, *args[4:], max_out=4,
+                                               randomized=True), 20)
+    qs_bound = bound(*fused_bound(4, 1, 4))
+    log(f"kernel sim_fused [quickstart: Q=1 x N=4, max_out=4, a planted "
+        f"hit]: {ms:.6f} ms/launch ({ms - floor_ms:.6f} above the launch "
+        f"floor), plain {plain_ms:.6f} ms, bound {qs_bound[0]:.6f} ms "
+        f"({qs_bound[1]})")
     args, planted = fused_case(dev, 2048, 64, 11)
     kw = dict(max_out=16, randomized=True, page_ids=args[4],
               page_seeds=args[5])

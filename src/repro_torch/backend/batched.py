@@ -20,9 +20,10 @@ At flush time the deferred queues become device operands:
   * every *unique* (query, mask) pair becomes one row of the (Q, 2) query
     operands — Q queries match against N pages in a single ``sim_search``
     launch, the §IV-E cross-page multi-query batch;
-  * queued gathers reference per-command arena rows and compact through one
-    ``sim_gather`` launch; de-randomization and inner-code verification of
-    the selected chunks happen host-side, batched over the whole burst;
+  * queued gathers become one arena-row index each, and one ``sim_gather``
+    launch reads the selected chunks of those rows in place and compacts
+    them; de-randomization and inner-code verification of the selected
+    chunks happen host-side, batched over the whole burst;
   * queued lookups (Op.LOOKUP) run the fused lookup kernel: key-page
     search, first-matching-user-slot selection, and the paired value page's
     same-slot chunk gather all happen in ONE launch, reading key and value
@@ -64,8 +65,7 @@ from repro_torch.core.commands import (Command, GatherResponse,
 from repro_torch.core.ecc import OpenVerdict
 from repro_torch.core.engine import SimChipArray
 from repro_torch.core.randomize import chunk_stream_words_batch
-from repro_torch.kernels.layout import (planes_to_chunk_words,
-                                        tensor_to_words, words_to_tensor)
+from repro_torch.kernels.layout import tensor_to_words, words_to_tensor
 from repro_torch.kernels.sim_fused.ops import sim_fused_lookup
 from repro_torch.kernels.sim_fused.ref import NO_SLOT
 from repro_torch.kernels.sim_gather.ops import sim_gather
@@ -476,14 +476,15 @@ class BatchedKernelBackend(MatchBackend):
         rows = self.store.rows_for(addrs)
         n = len(gathers)
         n_pad = padded_rows(n, PAGE_BLOCK)
-        lo, hi, _, _ = self.store.take(rows, n_pad)
-        chunk_words = planes_to_chunk_words(lo, hi)        # (Npad, 64, 16)
-        bm = np.zeros((n_pad, 2), dtype=np.uint32)
+        row_idx, = self.store.upload_rows(rows, pad_to=n_pad)
+        bm = np.zeros((n_pad, 2), dtype=np.uint32)   # pad rows gather nothing
         bm[:n] = np.asarray([cmd.chunk_bitmap for cmd, _ in gathers],
                             np.uint32)
-        out, _counts = sim_gather(chunk_words,
-                                  words_to_tensor(bm, self.device),
-                                  max_out=CHUNKS_PER_PAGE)
+        # The kernel reads the arena's rows in place: no gather copies.
+        lo, hi, _, _ = self.store.arena()
+        out, _counts = sim_gather(lo, hi, words_to_tensor(bm, self.device),
+                                  max_out=CHUNKS_PER_PAGE,
+                                  rows=row_idx)    # (Npad, 64, 16)
         self.stats.kernel_launches += 1
         self.stats.gathers += n
         snap = snapshot_parities(self.chips, addrs)

@@ -210,9 +210,9 @@ class PlaneStore:
 
         Returns (lo (P, 512), hi (P, 512), ids (P,), seeds (P,)) as fresh
         contiguous device tensors — no page bytes cross the bus here, only
-        the row indices.  The plan and gather flushes use it; the search
-        and lookup kernels read the arena in place (``arena``,
-        ``upload_rows``) and copy nothing.
+        the row indices.  The plan flush uses it; the search, lookup and
+        gather kernels read the arena in place (``arena``, ``upload_rows``)
+        and copy nothing.
         """
         r = np.zeros(pad_to, np.int64)
         r[:len(rows)] = rows

@@ -38,4 +38,37 @@ __device__ __forceinline__ uint32_t stream_ctr(uint32_t page_id, uint32_t seed,
           static_cast<uint32_t>(slot)) ^ seed;
 }
 
+// Streaming multiprocessors of `device` (132 on the H100 SXM if the query
+// fails), read once per device.
+inline int sm_count(int device) {
+  static int counts[64];
+  if (device < 0 || device >= 64) return 132;
+  if (counts[device] == 0) {
+    int n = 0;
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device) !=
+            cudaSuccess || n <= 0) {
+      n = 132;
+    }
+    counts[device] = n;
+  }
+  return counts[device];
+}
+
+// Query tiles of the kernels whose grid is (page, query tile): at most
+// kMaxQueryTile queries a block, halving (64, 32, 16, 8) while the grid has
+// fewer blocks than the card has SMs.
+constexpr int kMaxQueryTile = 64;
+constexpr int kMinQueryTile = 8;
+
+inline int query_tile(int n_pages, int n_queries, int device) {
+  const int sms = sm_count(device);
+  int tile = kMaxQueryTile;
+  while (tile > kMinQueryTile &&
+         static_cast<long long>(n_pages) * ((n_queries + tile - 1) / tile) <
+             sms) {
+    tile >>= 1;
+  }
+  return tile;
+}
+
 }  // namespace sim

@@ -50,8 +50,6 @@
 
 namespace {
 
-constexpr int kMaxQueryTile = 64;
-constexpr int kMinQueryTile = 8;
 constexpr int kThreads = 256;
 constexpr int kPerThread = sim::kSlots / kThreads;   // slots t + kThreads k
 constexpr int kWarps = kThreads / 32;
@@ -63,8 +61,9 @@ __global__ void __launch_bounds__(kThreads) search_kernel(
     const uint32_t* __restrict__ page_seeds, const int32_t* __restrict__ rows,
     uint32_t* __restrict__ out, int n_pages, int n_queries, int query_tile,
     int randomized) {
-  __shared__ uint4 tile_qm[kMaxQueryTile];
-  __shared__ __align__(16) uint32_t tile_bits[kMaxQueryTile][sim::kBitmapWords];
+  __shared__ uint4 tile_qm[sim::kMaxQueryTile];
+  __shared__ __align__(16)
+      uint32_t tile_bits[sim::kMaxQueryTile][sim::kBitmapWords];
   const int page = blockIdx.x;
   const int q0 = blockIdx.y * query_tile;
   const int nq = min(query_tile, n_queries - q0);
@@ -120,31 +119,6 @@ __global__ void __launch_bounds__(kThreads) search_kernel(
   }
 }
 
-int sm_count(int device) {
-  static int counts[64];
-  if (device < 0 || device >= 64) return 132;
-  if (counts[device] == 0) {
-    int n = 0;
-    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device) !=
-            cudaSuccess || n <= 0) {
-      n = 132;
-    }
-    counts[device] = n;
-  }
-  return counts[device];
-}
-
-// The largest query tile (64, 32, 16, 8) that still gives every SM a block.
-int query_tile(int n_pages, int n_queries, int sms) {
-  int tile = kMaxQueryTile;
-  while (tile > kMinQueryTile &&
-         static_cast<long long>(n_pages) * ((n_queries + tile - 1) / tile) <
-             sms) {
-    tile >>= 1;
-  }
-  return tile;
-}
-
 }  // namespace
 
 // lo, hi: (cap, 512) arena planes; page_ids, page_seeds: (cap,);
@@ -159,7 +133,7 @@ extern "C" int sim_search_launch(const void* lo, const void* hi,
                                  void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tile = query_tile(n_pages, n_queries, sm_count(device));
+  const int tile = sim::query_tile(n_pages, n_queries, device);
   const dim3 grid(n_pages, (n_queries + tile - 1) / tile);
   search_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(lo), static_cast<const uint32_t*>(hi),

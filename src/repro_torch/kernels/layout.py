@@ -47,6 +47,13 @@ def planes_to_chunk_words(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
                        dim=-1).reshape(b, CHUNKS, WORDS_PER_CHUNK)
 
 
+def chunk_words_to_planes(chunks: torch.Tensor):
+    """(B, 64, 16) chunk words -> contiguous (B, 512) lo and hi planes, the
+    inverse of :func:`planes_to_chunk_words`."""
+    words = chunks.reshape(chunks.shape[0], SLOTS, 2)
+    return words[..., 0].contiguous(), words[..., 1].contiguous()
+
+
 def words_to_tensor(words, device) -> torch.Tensor:
     """numpy uint32 words -> contiguous int32 tensor of the same bits (a
     copy: the tensor never aliases the caller's array)."""

@@ -40,7 +40,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "sim_search_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _P),
-    "sim_gather_launch": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "sim_gather_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "sim_lookup_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _P),
     "sim_plan_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

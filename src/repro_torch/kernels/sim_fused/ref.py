@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.layout import planes_to_chunk_words
-from repro_torch.kernels.sim_gather.ref import sim_gather_ref
+from repro_torch.kernels.sim_gather.ref import compact_chunks
 from repro_torch.kernels.sim_search.ref import (pack_bits, select_rows,
                                                 stream_planes, to_i32, u32)
 
@@ -44,7 +44,7 @@ def sim_fused_ref(lo, hi, queries, masks, page_ids, page_seeds, *,
     chunk_bitmap = to_i32((chunk_bits.to(torch.int64).reshape(n_q * n, 2, 32)
                            << shifts).sum(dim=-1))     # (Q*N, 2) lo, hi
     chunks = planes_to_chunk_words(lo, hi).expand(n_q, n, 64, 16)
-    gathered, counts = sim_gather_ref(chunks.reshape(n_q * n, 64, 16),
+    gathered, counts = compact_chunks(chunks.reshape(n_q * n, 64, 16),
                                       chunk_bitmap, max_out)
     return (pack_bits(bits), gathered.reshape(n_q, n, max_out, 16),
             counts.reshape(n_q, n))

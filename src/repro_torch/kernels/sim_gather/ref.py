@@ -4,10 +4,11 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.sim_search.ref import u32
+from repro_torch.kernels.layout import planes_to_chunk_words
+from repro_torch.kernels.sim_search.ref import select_rows, u32
 
 
-def sim_gather_ref(chunks, bitmap, max_out: int):
+def compact_chunks(chunks, bitmap, max_out: int):
     """Order-preserving chunk compaction per page.
 
     chunks: (N, 64, 16) int32 chunk-major page words
@@ -34,3 +35,15 @@ def sim_gather_ref(chunks, bitmap, max_out: int):
     gathered = torch.gather(padded, 1,
                             src[:, :max_out, None].expand(n, max_out, 16))
     return gathered, bit.sum(dim=1).to(torch.int32)
+
+
+def sim_gather_ref(lo, hi, bitmap, max_out: int, *, rows=None):
+    """The chunks each page's bitmap selects, read from page planes.
+
+    lo, hi: (cap, 512) int32 planes; bitmap: (N, 2) int32; rows: (N,) int32
+    rows of the planes to gather from, or None for all of them (N = cap).
+    Chunk j's word 2s is slot 8j + s's lo word, word 2s + 1 its hi word.
+    Returns :func:`compact_chunks` of those pages.
+    """
+    lo, hi = select_rows(rows, lo, hi)
+    return compact_chunks(planes_to_chunk_words(lo, hi), bitmap, max_out)

@@ -272,9 +272,8 @@ def _count_store_calls(monkeypatch):
 
 def test_search_and_lookup_flushes_read_the_arena_in_place(keys,
                                                            monkeypatch):
-    """A search or lookup flush copies no rows out of the arena: one index
-    upload, one launch, results equal to the JAX package's; a gather flush
-    still gathers."""
+    """A search, lookup or gather flush copies no rows out of the arena:
+    one index upload, one launch, results equal to the JAX package's."""
     calls = _count_store_calls(monkeypatch)
     port, ref = _pair(keys)
     got, want = _submit_both(port, ref, _search_args(keys, 3), "search")
@@ -289,9 +288,44 @@ def test_search_and_lookup_flushes_read_the_arena_in_place(keys,
             (b.value_slot, b.value, b.parity_ok)
         assert a.value_slot is not None
     assert calls == {"take": 0, "upload": 2}
-    _submit_both(port, ref, [Command.gather(2, 0b101)], "gather")
-    assert calls == {"take": 1, "upload": 2}
+    got, want = _submit_both(port, ref, [Command.gather(2, 0b101)], "gather")
+    np.testing.assert_array_equal(got[0].chunks, want[0].chunks)
+    np.testing.assert_array_equal(got[0].chunk_ids, [0, 2])
+    assert calls == {"take": 0, "upload": 3}
     assert port.stats.kernel_launches == 3
+    _same_stats(port, ref)
+
+
+def test_gather_flush_reads_the_arena_in_place(monkeypatch):
+    """A gather burst over 40 resident pages (rows past the first 32-row
+    block, repeated pages, an empty and a full bitmap, padded to 64 rows):
+    one upload, one launch, no row copies, and chunks, chunk ids, parity
+    and every counter equal to the JAX package's."""
+    keys = [np.random.default_rng(p).integers(1, 2**62, 100, dtype=np.uint64)
+            for p in range(40)]
+    port = SimChipArray(n_chips=5, pages_per_chip=8, device_seed=9)
+    ref = JSimChipArray(n_chips=5, pages_per_chip=8, device_seed=9)
+    for p, k in enumerate(keys):
+        port.program_entries(p, k)
+        ref.program_entries(p, k)
+    port, ref = BatchedKernelBackend(port, device="cpu"), JBatched(ref)
+    _submit_both(port, ref, [Command.search(p, 1) for p in range(40)],
+                 "search")                     # all 40 pages resident
+    calls = _count_store_calls(monkeypatch)
+    rng = np.random.default_rng(5)
+    cmds = [Command.gather(p, int(rng.integers(0, 2**64, dtype=np.uint64)))
+            for p in range(39, 5, -1)]
+    cmds += [Command.gather(37, 0), Command.gather(33, 2**64 - 1),
+             Command.gather(33, 1), Command.gather(3, 1 << 63)]
+    got, want = _submit_both(port, ref, cmds, "gather")
+    assert calls == {"take": 0, "upload": 1}
+    assert port.stats.kernel_launches == 2
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.chunks, b.chunks)
+        np.testing.assert_array_equal(a.chunk_ids, b.chunk_ids)
+        np.testing.assert_array_equal(a.parity_ok, b.parity_ok)
+        assert a.parity_ok.all()
+    assert len(got[-4].chunk_ids) == 0 and len(got[-3].chunk_ids) == 64
     _same_stats(port, ref)
 
 

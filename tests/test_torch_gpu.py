@@ -99,11 +99,13 @@ def test_sim_search_kernel_matches_plain(n_pages, n_queries):
 def test_sim_gather_kernel_matches_plain(n_pages, max_out):
     dev = _cuda_or_skip()
     rng = np.random.default_rng(n_pages + max_out)
-    chunks = words_to_tensor(_u32(rng, (n_pages, 64, 16)), dev)
-    bm = words_to_tensor(_u32(rng, (n_pages, 2)), dev)
-    got = sim_gather(chunks, bm, max_out=max_out)
+    lo, hi, bm = (words_to_tensor(_u32(rng, shape), dev)
+                  for shape in ((n_pages, 512), (n_pages, 512), (n_pages, 2)))
+    before = native.LAUNCHES["sim_gather"]
+    got = sim_gather(lo, hi, bm, max_out=max_out)
     torch.cuda.synchronize()
-    _check_equal(got, sim_gather_ref(chunks, bm, max_out))
+    assert native.LAUNCHES["sim_gather"] == before + 1
+    _check_equal(got, sim_gather_ref(lo, hi, bm, max_out))
 
 
 @pytest.mark.gpu
@@ -234,8 +236,13 @@ def test_replay_on_card_matches_cpu(fused):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_pages,n_queries,max_out", [(64, 8, 16), (17, 3, 4),
-                                                       (5, 2, 64), (1, 1, 0)])
+@pytest.mark.parametrize("n_pages,n_queries,max_out", [
+    (64, 8, 16), (17, 3, 4), (5, 2, 64), (1, 1, 0),
+    (33, 17, 16),        # Q fills no query tile of 8 warps evenly
+    (2048, 64, 16),      # the smoke's shape: one 64-query tile a page
+    (7, 5, 80),          # max_out past 64: rows 64.. are always zero
+    (3, 130, 4),         # several query tiles a page, a ragged last one
+])
 def test_sim_fused_kernel_matches_plain(n_pages, n_queries, max_out):
     dev = _cuda_or_skip()
     rng = np.random.default_rng(n_pages * 5 + n_queries)
@@ -493,6 +500,42 @@ def test_sim_plan_groups_and_pass_counts(n_groups, p_pad, n_pages):
 # ------------------------------------------------ in place: arena row indices
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n_pages,max_out", [(1, 64), (5, 4), (13, 16),
+                                             (64, 64), (64, 1), (70, 80),
+                                             (33, 0)])
+def test_sim_gather_in_place_matches_plain(n_pages, max_out):
+    """Chunks read through arena rows (repeats, pad rows of row 0 with
+    bitmap 0, rows past the first 32): one chunk a row as the replay
+    gathers, random selections past max_out, the header chunk alone, the
+    last chunk alone and all 64; also through ``rows=None``."""
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(n_pages * 11 + max_out)
+    cap = 2 * n_pages + 40
+    lo, hi = _u32(rng, (cap, 512)), _u32(rng, (cap, 512))
+    rows = rng.integers(1, cap, n_pages).astype(np.int32)
+    bm = np.zeros((n_pages, 2), np.uint32)
+    one = rng.integers(0, 64, n_pages)
+    bm[np.arange(n_pages), one // 32] = 1 << (one % 32).astype(np.uint32)
+    bm[1::3] = _u32(rng, (len(bm[1::3]), 2))
+    if n_pages > 4:
+        bm[2], bm[3], bm[4] = [1, 0], [0, 1 << 31], [0xFFFFFFFF] * 2
+        rows[5 % n_pages] = rows[0]              # a repeat
+        rows[-1], bm[-1] = 0, 0                  # a pad row
+    args = [words_to_tensor(a, dev) for a in (lo, hi, bm)]
+    idx = words_to_tensor(rows.view(np.uint32), dev)
+    before = native.LAUNCHES["sim_gather"]
+    got = sim_gather(*args, max_out=max_out, rows=idx)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["sim_gather"] == before + 1
+    plain = sim_gather_ref(*args, max_out, rows=idx)
+    assert got[0].shape == (n_pages, max_out, 16)
+    _check_equal(got, plain)
+    every = [words_to_tensor(a[:n_pages], dev) for a in (lo, hi)]
+    _check_equal(sim_gather(*every, args[2], max_out=max_out),
+                 sim_gather_ref(*every, args[2], max_out))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n_pages,n_queries", [(1, 1), (5, 5), (13, 13),
                                                (64, 64), (70, 5), (5, 70),
                                                (3, 130), (64, 200)])
@@ -587,7 +630,7 @@ def test_sim_lookup_in_place_matches_plain(n_rows):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["search", "lookup"])
+@pytest.mark.parametrize("kind", ["search", "lookup", "gather"])
 def test_reprogram_between_flush_and_drain_on_card(kind):
     """A burst flushed before its page is reprogrammed, restaged and the
     arena grown (by the next flush, queued after the launch on the same
@@ -601,13 +644,15 @@ def test_reprogram_between_flush_and_drain_on_card(kind):
         for p in range(40):
             arr.program_entries(p, old + p)
         be = make_backend("batched", arr, device=device)
-        cmd = (Command.search(1, int(old[9] + 1)) if kind == "search"
-               else Command.lookup(1, 2, int(old[9] + 1)))
+        cmd = {"search": Command.search(1, int(old[9] + 1)),
+               "lookup": Command.lookup(1, 2, int(old[9] + 1)),
+               "gather": Command.gather(1, 0b11 | 1 << 63)}[kind]
         submit = getattr(be, f"submit_{kind}")
         first = [submit(cmd)]
         for p in range(2, 4):                   # 4 resident rows of 32
-            first.append(submit(Command.search(p, 1) if kind == "search"
-                                else Command.lookup(p, p + 1, 1)))
+            first.append(submit({"search": Command.search(p, 1),
+                                 "lookup": Command.lookup(p, p + 1, 1),
+                                 "gather": Command.gather(p, 0b110)}[kind]))
         be.flush()
         arr.program_entries(1, new + 1)
         arr.program_entries(2, new + 2)
@@ -619,10 +664,20 @@ def test_reprogram_between_flush_and_drain_on_card(kind):
     card, cpu = results[None], results["cpu"]
     if kind == "search":
         assert card[0].match_count == 1 and card[3].match_count == 0
-    else:
+    elif kind == "lookup":
         assert card[0].value_slot == 8 + 9 and card[0].parity_ok
         assert card[3].value_slot is None
+    else:
+        # The first gather read page 1's old image, the second its new one.
+        assert list(card[0].chunk_ids) == [0, 1, 63]
+        assert card[0].parity_ok.all() and card[3].parity_ok.all()
+        assert not np.array_equal(card[0].chunks[1], card[3].chunks[1])
     for a, b in zip(card, cpu):
+        if kind == "gather" and hasattr(a, "chunks"):
+            np.testing.assert_array_equal(a.chunks, b.chunks)
+            np.testing.assert_array_equal(a.chunk_ids, b.chunk_ids)
+            np.testing.assert_array_equal(a.parity_ok, b.parity_ok)
+            continue
         if kind == "lookup" and hasattr(a, "search"):
             assert (a.value_slot, a.value, a.parity_ok) == \
                 (b.value_slot, b.value, b.parity_ok)

@@ -18,7 +18,8 @@ from repro.kernels.sim_fused.ops import sim_fused_lookup as jax_lookup
 from repro.kernels.sim_gather.ops import sim_gather as jax_gather
 from repro.kernels.sim_search.ops import sim_search as jax_search
 from repro_torch.kernels import native
-from repro_torch.kernels.layout import (pages_to_chunk_words,
+from repro_torch.kernels.layout import (chunk_words_to_planes,
+                                        pages_to_chunk_words,
                                         planes_to_chunk_words,
                                         tensor_to_words, words_to_tensor)
 from repro_torch.kernels.sim_fused.ops import sim_fused, sim_fused_lookup
@@ -78,6 +79,24 @@ def test_planes_to_chunk_words_matches_page_bytes():
                                   pages_to_chunk_words(pages))
 
 
+def test_chunk_words_to_planes_inverts_planes_to_chunk_words():
+    rng = np.random.default_rng(2)
+    chunks = _t(_u32(rng, (3, 64, 16)))
+    lo, hi = chunk_words_to_planes(chunks)
+    assert lo.shape == hi.shape == (3, 512)
+    assert lo.is_contiguous() and hi.is_contiguous()
+    assert torch.equal(planes_to_chunk_words(lo, hi), chunks)
+    # Chunk j's word 2s is slot 8j + s's lo word, word 2s + 1 its hi word.
+    assert int(lo[1, 8 * 5 + 3]) == int(chunks[1, 5, 6])
+    assert int(hi[1, 8 * 5 + 3]) == int(chunks[1, 5, 7])
+
+
+def _gather(chunks, bm, max_out, **kw):
+    """The port's gather on planes made from (N, 64, 16) chunk words."""
+    return sim_gather(*chunk_words_to_planes(_t(chunks)), _t(bm),
+                      max_out=max_out, **kw)
+
+
 def test_word_carrier_round_trips_extreme_words():
     a = np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF], np.uint32)
     np.testing.assert_array_equal(tensor_to_words(_t(a)), a)
@@ -111,7 +130,7 @@ def test_sim_gather_matches_pallas(n_pages, max_out):
     bm = _u32(rng, (n_pages, 2))
     bm[0] = [0xFFFFFFFF, 0xFFFFFFFF]           # overflows every max_out < 64
     want_out, want_cnt = jax_gather(chunks, bm, max_out=max_out, page_block=8)
-    out, cnt = sim_gather(_t(chunks), _t(bm), max_out=max_out)
+    out, cnt = _gather(chunks, bm, max_out)
     np.testing.assert_array_equal(tensor_to_words(out), np.asarray(want_out))
     np.testing.assert_array_equal(cnt.numpy(), np.asarray(want_cnt))
 
@@ -120,12 +139,12 @@ def test_sim_gather_order_zero_tail_and_overflow_count():
     chunks = np.arange(64 * 16, dtype=np.uint32).reshape(1, 64, 16)
     chunks[0, 40] = 0xFFFFFFFF
     bm = np.array([[1 << 3, (1 << 8) | (1 << 31)]], np.uint32)
-    out, cnt = sim_gather(_t(chunks), _t(bm), max_out=8)
+    out, cnt = _gather(chunks, bm, 8)
     out = tensor_to_words(out)
     assert int(cnt[0]) == 3
     np.testing.assert_array_equal(out[0, :3], chunks[0, [3, 40, 63]])
     assert (out[0, 3:] == 0).all()
-    out, cnt = sim_gather(_t(chunks), _t(bm), max_out=2)
+    out, cnt = _gather(chunks, bm, 2)
     assert int(cnt[0]) == 3 and out.shape == (1, 2, 16)
 
 
@@ -153,8 +172,9 @@ def test_cpu_tensors_never_launch():
     lo, hi, q, m, ids, seeds = _search_inputs(3, 2, 0)
     sim_search(_t(lo), _t(hi), _t(q), _t(m), _t(ids), _t(seeds),
                randomized=True)
-    sim_gather(_t(np.zeros((2, 64, 16), np.uint32)),
-               _t(np.ones((2, 2), np.uint32)), max_out=4)
+    sim_gather(_t(lo), _t(hi), _t(np.ones((3, 2), np.uint32)), max_out=4)
+    sim_gather(_t(lo), _t(hi), _t(np.ones((2, 2), np.uint32)), max_out=4,
+               rows=_t(np.array([2, 0], np.int32)))
     sim_plan(_t(lo), _t(hi), _t(q[None]), _t(m[None]),
              _t(np.ones((1, 2), np.uint32)), _t(ids), _t(seeds),
              randomized=True)
@@ -287,3 +307,66 @@ def test_sim_lookup_rows_none_is_every_row():
         for g, w in zip(got, want):
             np.testing.assert_array_equal(tensor_to_words(g),
                                           np.asarray(w).view(np.uint32))
+
+
+# Index sets into the arena for the in-place gather: repeated rows, pad rows
+# repeating row 0 with bitmap 0 (as the gather flush pads), rows past 32.
+GATHER_ROW_KINDS = ("repeats", "pad_rows", "past_32")
+
+
+def _gather_rows(kind, n_pages, rng):
+    if kind == "past_32":
+        return rng.integers(32, ARENA, n_pages).astype(np.int32)
+    rows = rng.integers(1, ARENA, n_pages).astype(np.int32)
+    if kind == "repeats" and n_pages > 1:
+        rows[1::2] = rows[0]
+    if kind == "pad_rows" and n_pages > 1:
+        rows[-(n_pages // 2):] = 0
+    return rows
+
+
+@pytest.mark.parametrize("kind", GATHER_ROW_KINDS)
+@pytest.mark.parametrize("max_out", [4, 16, 64])
+@pytest.mark.parametrize("n_pages", [1, 16, 33])
+def test_sim_gather_rows_match_pallas_on_gathered_planes(n_pages, max_out,
+                                                         kind):
+    """The gather through arena rows equals the Pallas kernel run on chunk
+    words built from the same rows, bit for bit."""
+    rng = np.random.default_rng(n_pages * 13 + max_out + len(kind))
+    lo, hi = _u32(rng, (ARENA, 512)), _u32(rng, (ARENA, 512))
+    rows = _gather_rows(kind, n_pages, rng)
+    bm = _u32(rng, (n_pages, 2))
+    bm[0] = [0xFFFFFFFF, 0xFFFFFFFF]           # overflows every max_out < 64
+    if n_pages > 2:
+        bm[1] = [1, 0]                         # the header chunk alone
+        bm[2] = [0, 1 << 31]                   # the last chunk alone
+    bm[rows == 0] = 0                          # pad rows select nothing
+    take = lambda a: np.asarray(jnp.take(jnp.asarray(a), rows, axis=0))
+    chunks = np.stack([take(lo).reshape(n_pages, 64, 8),
+                       take(hi).reshape(n_pages, 64, 8)],
+                      axis=-1).reshape(n_pages, 64, 16)
+    want_out, want_cnt = jax_gather(chunks, bm, max_out=max_out, page_block=8)
+    out, cnt = sim_gather(_t(lo), _t(hi), _t(bm), max_out=max_out,
+                          rows=_t(rows))
+    assert out.shape == (n_pages, max_out, 16) and cnt.shape == (n_pages,)
+    np.testing.assert_array_equal(tensor_to_words(out), np.asarray(want_out))
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(want_cnt))
+    assert int(cnt[0]) == 64
+    assert (tensor_to_words(out)[rows == 0] == 0).all()
+
+
+def test_sim_gather_rows_none_is_every_row():
+    rng = np.random.default_rng(4)
+    lo, hi = _u32(rng, (37, 512)), _u32(rng, (37, 512))
+    bm = _u32(rng, (37, 2))
+    args = [_t(a) for a in (lo, hi, bm)]
+    every = sim_gather(*args, max_out=16,
+                       rows=_t(np.arange(37, dtype=np.int32)))
+    plain = sim_gather(*args, max_out=16)
+    want_out, want_cnt = jax_gather(tensor_to_words(
+        planes_to_chunk_words(args[0], args[1])), bm, max_out=16,
+        page_block=8)
+    for got in (every, plain):
+        np.testing.assert_array_equal(tensor_to_words(got[0]),
+                                      np.asarray(want_out))
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want_cnt))
