@@ -23,29 +23,46 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    (fused, one ``sim_plan`` launch a scan; the first scans are also held
    against the per-pass search path) and YCSB-A through the §VI DRAM write
    buffer (fused).
-4. The quickstart (``repro_torch.quickstart.main``) on the card: the
+4. The §V indexes on the ``batched`` backend, each path against a numpy
+   oracle, with the first bursts of each kind also run on
+   ``ScalarBackend`` over a copy of the stored pages and held equal
+   response by response (and in ``result_bytes``), and every index call
+   held to its exact launches: a ``SimBTree`` of 16,384 leaves (64 lookup
+   bursts, one ``sim_lookup`` each; 256 ranges of up to 100 keys and 4 of
+   2 % of the key space, one ``sim_plan`` and one ``sim_gather`` each), a
+   ``SimHashIndex`` with the §VI write buffer (32,768 inserts, 1,024
+   updates, 64 probe bursts; each split and each burst one ``sim_search``
+   and one ``sim_gather``), a ``SimSecondaryIndex`` of 1,048,576 rows on
+   2,081 pages (three selects, one ``sim_plan`` and one ``sim_gather``
+   each), then ``repro_torch.database_index.main`` on the card, held
+   against the same run on the CPU's plain versions.
+5. The quickstart (``repro_torch.quickstart.main``) on the card: the
    ``sim_search`` and cross-product ``sim_fused`` kernels, held against
    the same run on the CPU's plain versions.
-5. Serving qwen3-4b at full width and depth with the SiM-paged KV cache
+6. Serving qwen3-4b at full width and depth with the SiM-paged KV cache
    (``repro_torch.launch.serve.serve``): every attention of prefill and
    decode through the flash attention kernel, the block table's counters
    recounted from the requests, a paged sequence gathered back bit for bit,
    and first-token logits held against the plain attention.  Then the
    launcher's default, the reduced qwen3-4b (16-wide heads), served on the
    card through the kernel, with the same checks but the gather.
-6. One JSON line of the kernels, their launches and times.
-7. The card's ``nvidia-smi`` name and power limit, then the last line:
+7. One JSON line of the kernels, their launches and times.
+8. The card's ``nvidia-smi`` name and power limit, then the last line:
    ``{"ok": true, "device": {...}}``.
 
-The launch counts are set to 0 just before each path of phases 3–5 and
+The launch counts are set to 0 just before each path of phases 3–6 and
 read just after it; they show which kernels ran on that path.  The replay
 scale is 20% of the paper's 650 MiB index: 16,384 key pages and 16,384
-value pages of 4 KiB on 16 chips, for every replay path.  ``--key-pages``
-and ``--n-ops`` cut it for a quick check.
+value pages of 4 KiB on 16 chips, for every replay path; the B+Tree has as
+many leaves.  ``--key-pages`` and ``--n-ops`` cut them for a quick check
+(the hash index takes two inserts a key page, the secondary index 64
+rows a key page).
 """
 from __future__ import annotations
 
 import argparse
+import bisect
+import dataclasses
 import json
 import subprocess
 import sys
@@ -57,9 +74,15 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch import quickstart  # noqa: E402
-from repro_torch.backend import BatchedKernelBackend  # noqa: E402
+from repro_torch import database_index, quickstart  # noqa: E402
+from repro_torch.backend import (BatchedKernelBackend,  # noqa: E402
+                                 ScalarBackend)
+from repro_torch.backend.batched import PAGE_BLOCK  # noqa: E402
+from repro_torch.backend.planestore import next_pow2, padded_rows  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.convert import (chip_array_from_numpy,  # noqa: E402
+                                 chip_array_to_numpy)
+from repro_torch.core.bitweaving import Column, RowCodec  # noqa: E402
 from repro_torch.core.commands import Command  # noqa: E402
 from repro_torch.core.engine import SimChipArray  # noqa: E402
 from repro_torch.core.page import mask_header_slots  # noqa: E402
@@ -68,6 +91,10 @@ from repro_torch.core.range_query import (RangePlan,  # noqa: E402
                                           evaluate_plan_on_pages,
                                           evaluate_plan_per_pass, exact_range)
 from repro_torch.frontend import RunConfig, replay  # noqa: E402
+from repro_torch.index.btree import SimBTree  # noqa: E402
+from repro_torch.index.hashindex import SimHashIndex  # noqa: E402
+from repro_torch.index.secondary import (ROWS_PER_PAGE,  # noqa: E402
+                                         SimSecondaryIndex)
 from repro_torch.kernels import native  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     flash_attention)
@@ -132,6 +159,7 @@ KERNELS = {
         "src/repro/kernels/flash_attention/flash_attention.py:31"),
 }
 REPLAY_KERNELS = ("sim_search", "sim_gather", "sim_lookup", "sim_plan")
+INDEX_KERNELS = ("sim_lookup", "sim_plan", "sim_gather", "sim_search")
 # Bounds of the full serve run: a prompt of 4-16 tokens and at most 12 new
 # ones keep every position below 28 of the 128-slot cache.
 SERVE_ARCH, SERVE_CACHE_LEN = "qwen3-4b", 128
@@ -1069,6 +1097,448 @@ def main_path(kp, n_ops) -> dict:
     return launches
 
 
+# ------------------------------------------------------- phase 4: indexes
+# Each index path compares its first bursts of each kind against
+# ScalarBackend, response by response.
+N_COMPARED = 8
+# The B+Tree's leaf fill (the JAX package's default) and YCSB workloade's
+# maxscanlength; a wide range covers 2 % of the key space.
+LEAF_FILL, MAX_SCAN, WIDE_FRACTION = 404, 100, 0.02
+SECONDARY_COLUMNS = (("gender", 1), ("age", 7), ("salary", 20), ("uid", 32))
+
+
+def same_response(a, b, where) -> None:
+    """Two responses equal field for field, arrays by value and dtype."""
+    if type(a) is not type(b):
+        raise AssertionError(f"{where}: {type(a).__name__} against "
+                             f"{type(b).__name__}")
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if dataclasses.is_dataclass(x):
+            same_response(x, y, where)
+        elif isinstance(x, np.ndarray):
+            if x.dtype != y.dtype or not np.array_equal(x, y):
+                raise AssertionError(f"{where}: {f.name} differs from the "
+                                     "scalar reference")
+        elif x != y:
+            raise AssertionError(f"{where}: {f.name} {x!r} against the "
+                                 f"scalar reference's {y!r}")
+
+
+class IndexBackend(BatchedKernelBackend):
+    """The batched backend of the index phase.
+
+    While ``record`` names a kind of burst, every flush that carries
+    commands also runs them on ``ScalarBackend`` over a copy of the stored
+    pages (``convert``; made anew after any program), and holds each
+    response and the burst's ``result_bytes`` against the reference's.
+    Eager programs are timed apart, as the bulk load, and so is the
+    reference's work."""
+
+    def __init__(self, chips, **kw):
+        super().__init__(chips, **kw)
+        self.record = None
+        self.compared: dict[str, int] = {}
+        self.load_s = self.compare_s = 0.0
+        self._queued = []
+        self._mirror = None
+
+    def program_entries(self, page_addr, entries, **kw):
+        self._mirror = None
+        t0 = time.perf_counter()
+        built = super().program_entries(page_addr, entries, **kw)
+        self.load_s += time.perf_counter() - t0
+        return built
+
+    def _execute_programs(self):
+        addrs = super()._execute_programs()
+        if addrs:
+            self._mirror = None
+        return addrs
+
+    def _queue(self, kind, cmd, ticket):
+        if self.record is not None:
+            self._queued.append((kind, cmd, ticket))
+        return ticket
+
+    def submit_search(self, cmd):
+        return self._queue("search", cmd, super().submit_search(cmd))
+
+    def submit_gather(self, cmd):
+        return self._queue("gather", cmd, super().submit_gather(cmd))
+
+    def submit_lookup(self, cmd):
+        return self._queue("lookup", cmd, super().submit_lookup(cmd))
+
+    def submit_plan(self, cmd):
+        return self._queue("plan", cmd, super().submit_plan(cmd))
+
+    def flush(self):
+        queued, self._queued = self._queued, []
+        before = self.stats.result_bytes
+        super().flush()
+        if not queued:
+            return
+        got = [t.result() for _, _, t in queued]   # this burst's host tails
+        card_bytes = self.stats.result_bytes - before
+        t0 = time.perf_counter()
+        if self._mirror is None:
+            self._mirror = ScalarBackend(chip_array_from_numpy(
+                chip_array_to_numpy(self.chips)))
+        ref = self._mirror
+        before = ref.stats.result_bytes
+        refs = [getattr(ref, f"submit_{kind}")(cmd) for kind, cmd, _ in queued]
+        ref.flush()
+        where = f"{self.record} burst {self.compared.get(self.record, 0)}"
+        for i, (a, t) in enumerate(zip(got, refs)):
+            same_response(a, t.result(), f"{where}, command {i}")
+        if card_bytes != ref.stats.result_bytes - before:
+            raise AssertionError(f"{where}: result_bytes {card_bytes}, the "
+                                 "scalar reference's "
+                                 f"{ref.stats.result_bytes - before}")
+        self.compared[self.record] = self.compared.get(self.record, 0) + 1
+        self.compare_s += time.perf_counter() - t0
+
+
+def grown(before) -> dict:
+    """Launches by kernel since the ``dict(native.LAUNCHES)`` snapshot."""
+    return {k: native.LAUNCHES[k] - before[k] for k in before
+            if native.LAUNCHES[k] != before[k]}
+
+
+def counted(label, expect, fn, *args):
+    """Call an index method; its launches by kernel must equal ``expect``
+    (kernels that should not launch may be left out or given 0)."""
+    before = dict(native.LAUNCHES)
+    out = fn(*args)
+    want = {k: v for k, v in expect.items() if v}
+    if grown(before) != want:
+        raise AssertionError(f"{label}: launched {grown(before)}, expected "
+                             f"{want}")
+    return out
+
+
+def index_path_begin():
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launches()
+    return before, time.perf_counter()
+
+
+def index_path_end(label, backend, t0, before, n_ops, extra,
+                   compared) -> dict:
+    """Log the path; check its launches add up and that each kind of burst
+    in ``compared`` was held against ScalarBackend that many times."""
+    for kind, n in compared.items():
+        if backend.compared.get(kind, 0) < n:
+            raise AssertionError(f"{label}: {backend.compared.get(kind, 0)} "
+                                 f"{kind} bursts compared, expected {n}")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    grew = {k: v for k, v in native.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    if sum(grew.values()) != backend.stats.kernel_launches:
+        raise AssertionError(f"{label}: launches by kernel {grew} do not add "
+                             f"up to kernel_launches "
+                             f"{backend.stats.kernel_launches}")
+    run_s = wall_s - backend.load_s - backend.compare_s
+    log(f"index {label}: wall {wall_s:.3f} s (bulk load "
+        f"{backend.load_s:.3f} s, ScalarBackend comparisons "
+        f"{backend.compare_s:.3f} s), {n_ops} ops, {n_ops / run_s:.1f} ops/s "
+        f"after the load and without the comparisons; "
+        f"{extra}; flushes {backend.stats.flushes}, kernel_launches "
+        f"{backend.stats.kernel_launches}, launches by kernel {grew}, "
+        f"staged_bytes {backend.stats.staged_bytes}, result_bytes "
+        f"{backend.stats.result_bytes}, resident rows "
+        f"{backend.store.resident_rows}, compared with ScalarBackend "
+        f"{backend.compared}, peak device memory {peak} bytes ({before} "
+        f"allocated before the path)")
+    return grew
+
+
+def plan_flush_ms(label, backend, pages, plan) -> None:
+    """Device time of one plan flush over ``pages`` (resident), apart: the
+    ``take`` of its padded rows, then the ``sim_plan`` kernel on them.
+    Called after the path's launches are read; its launches count
+    nowhere."""
+    rows = backend.store.rows_for(pages)
+    n_pad = padded_rows(len(rows), PAGE_BLOCK)
+    cmd = Command.plan(0, plan.include, plan.exclude)
+    p_pad = next_pow2(cmd.n_passes)
+    q, m, f = (words_to_tensor(a[None], backend.device) for a in
+               plan_pass_rows(cmd.plan_include, cmd.plan_exclude, p_pad))
+    taken = backend.store.take(rows, n_pad)
+    take_ms = device_ms(lambda: backend.store.take(rows, n_pad), 25)
+    kernel_ms = device_ms(lambda: sim_plan(*taken[:2], q, m, f, *taken[2:],
+                                           randomized=True), 25)
+
+    def flush():
+        lo, hi, ids, seeds = backend.store.take(rows, n_pad)
+        return sim_plan(lo, hi, q, m, f, ids, seeds, randomized=True)
+    flush_ms = device_ms(flush, 25)
+    log(f"plan flush {label} [G=1, P={p_pad} ({cmd.n_passes} passes), "
+        f"N={n_pad} ({len(rows)} pages)]: take {take_ms:.6f} ms "
+        f"({n_pad * 4096} bytes of planes copied), sim_plan {kernel_ms:.6f} "
+        f"ms, take + sim_plan {flush_ms:.6f} ms a flush (device time)")
+
+
+def btree_path(n_leaves) -> dict:
+    """SimBTree over ``n_leaves`` leaves of 404 random keys on 16 chips:
+    64 lookup bursts (48 present, 16 absent keys, some below the smallest),
+    256 ranges of up to 100 keys and 4 of 2 % of the key space, each
+    against a sorted-array oracle."""
+    rng = np.random.default_rng(17)
+    n_keys = n_leaves * LEAF_FILL
+    keys = np.unique(rng.integers(1, 2**64 - 1, n_keys + n_keys // 64,
+                                  dtype=np.uint64))
+    keys = rng.permutation(keys)[:n_keys]
+    sk = np.sort(keys)
+    values = (keys * np.uint64(0x9E3779B97F4A7C15)) | np.uint64(1)
+    sv = (sk * np.uint64(0x9E3779B97F4A7C15)) | np.uint64(1)
+    chips = SimChipArray(n_chips=16, pages_per_chip=-(-2 * n_leaves // 16)
+                         + 1, device_seed=7)
+    backend = IndexBackend(chips)
+    before, t0 = index_path_begin()
+    bt = SimBTree(backend, leaf_fill=LEAF_FILL)
+    bt.bulk_load(keys, values)
+    del keys, values
+    if len(bt.leaves) != n_leaves:
+        raise AssertionError(f"{len(bt.leaves)} leaves for {n_leaves}")
+
+    def oracle(q):
+        q = np.asarray(q, np.uint64)
+        pos = np.minimum(np.searchsorted(sk, q), len(sk) - 1)
+        return [int(sv[p]) if sk[p] == k else None for k, p in zip(q, pos)]
+
+    expect = {}
+    for b in range(64):
+        present = rng.choice(sk, 48, replace=False)
+        absent = rng.integers(1, 2**64 - 1, 16, dtype=np.uint64)
+        absent[:4] = rng.integers(1, int(sk[0]), 4, dtype=np.uint64)
+        probe = [int(k) for k in rng.permutation(np.concatenate(
+            [present, absent]))]
+        backend.record = "btree lookup" if b < N_COMPARED else None
+        got = counted("lookup_batch", {"sim_lookup": 1}, bt.lookup_batch,
+                      probe)
+        if got != oracle(probe):
+            raise AssertionError(f"lookup burst {b} differs from the oracle")
+    backend.record = None
+    below = [int(k) for k in rng.integers(1, int(sk[0]), 8, dtype=np.uint64)]
+    if counted("lookup_batch below", {}, bt.lookup_batch, below) != \
+            [None] * 8:
+        raise AssertionError("keys below the smallest key hit")
+    wide = int(WIDE_FRACTION * len(sk))
+    ranges = []
+    for r in range(256):
+        i = int(rng.integers(0, len(sk) - MAX_SCAN))
+        ranges.append((i, i + int(rng.integers(1, MAX_SCAN + 1)), "short"))
+    for r in range(4):
+        i = int(rng.integers(0, len(sk) - wide))
+        ranges.append((i, i + wide, "wide"))
+    leaves_of = {"short": [], "wide": []}
+    passes = []
+    for n, (i, j, kind) in enumerate(ranges):
+        lo, hi = int(sk[i]), int(sk[j - 1]) + 1
+        backend.record = (f"btree {kind} range"
+                          if n < N_COMPARED or kind == "wide" else None)
+        rows = counted("range_query", {"sim_plan": 1, "sim_gather": 1},
+                       bt.range_query, lo, hi)
+        if sorted(rows) != list(zip(sk[i:j].tolist(), sv[i:j].tolist())):
+            raise AssertionError(f"range {n} ({kind}) differs from the "
+                                 "oracle")
+        passes.append(exact_range(lo, hi).n_passes)
+        i0 = max(bisect.bisect_right(bt._separators, lo) - 1, 0)
+        leaves_of[kind].append(sum(1 for leaf in bt.leaves[i0:]
+                                   if leaf.low_key < hi))
+    backend.record = None
+    n_ops = 64 * 64 + 8 + len(ranges)
+    grew = index_path_end(
+        "B+Tree", backend, t0, before, n_ops,
+        f"{n_leaves} leaves ({2 * n_leaves} pages, {len(sk)} keys), 64 "
+        f"lookup bursts of 64 + 1 of 8 below the smallest key, 256 ranges "
+        f"of 1-{MAX_SCAN} keys ({min(leaves_of['short'])}-"
+        f"{max(leaves_of['short'])} leaves), 4 of {wide} keys "
+        f"({min(leaves_of['wide'])}-{max(leaves_of['wide'])} leaves); "
+        f"{max(passes)} plan passes at most",
+        {"btree lookup": N_COMPARED, "btree short range": N_COMPARED,
+         "btree wide range": 4})
+    want = {"sim_lookup": 64, "sim_plan": len(ranges),
+            "sim_gather": len(ranges)}
+    if grew != want:
+        raise AssertionError(f"B+Tree path launched {grew}, expected {want}")
+    i, j, _ = ranges[-1]
+    lo, hi = int(sk[i]), int(sk[j - 1]) + 1
+    i0 = max(bisect.bisect_right(bt._separators, lo) - 1, 0)
+    plan_flush_ms("B+Tree wide range", backend,
+                  [leaf.key_page for leaf in bt.leaves[i0:]
+                   if leaf.low_key < hi], exact_range(lo, hi))
+    return grew
+
+
+def hash_path(n_inserts) -> dict:
+    """SimHashIndex with its defaults (the §VI write buffer at 16 pages) on
+    its own chips: ``n_inserts`` inserts, 1,024 updates (at most one a
+    key), then 64 probe
+    bursts of 48 present and 16 absent keys, against a dict.  Every split
+    is one ``sim_search`` and one ``sim_gather``."""
+    rng = np.random.default_rng(23)
+    keys = np.unique(rng.integers(1, 2**64 - 1, n_inserts + 64 * 16 + 64,
+                                  dtype=np.uint64))
+    keys = [int(k) for k in rng.permutation(keys)]
+    keys, absent = keys[:n_inserts], keys[n_inserts:n_inserts + 64 * 16]
+    chips = SimChipArray(n_chips=16, pages_per_chip=64, device_seed=11)
+    backend = IndexBackend(chips)
+    before, t0 = index_path_begin()
+    h = SimHashIndex(backend)
+    oracle = {}
+
+    def insert(k, v):
+        backend.record = "hash split" if h.splits < N_COMPARED else None
+        launches, splits = dict(native.LAUNCHES), h.splits
+        h.insert(k, v)
+        n = h.splits - splits
+        if grown(launches) != ({"sim_search": n, "sim_gather": n} if n
+                               else {}):
+            raise AssertionError(f"insert with {n} splits launched "
+                                 f"{grown(launches)}")
+        oracle[k] = v
+
+    for i, k in enumerate(keys):
+        insert(k, i + 1)
+    backend.load_s = insert_s = time.perf_counter() - t0   # the load
+    n_updates = min(1024, len(keys))
+    for j in rng.choice(len(keys), n_updates, replace=False):
+        insert(keys[j], oracle[keys[j]] * 7)
+    update_s = time.perf_counter() - t0 - insert_s
+    backend.record = None
+    for b in range(64):
+        present = [keys[j] for j in rng.choice(len(keys), 48, replace=False)]
+        probe = present + absent[16 * b:16 * (b + 1)]
+        h.flush_writes()
+        backend.record = "hash probe" if b < N_COMPARED else None
+        got = counted("lookup_batch", {"sim_search": 1, "sim_gather": 1},
+                      h.lookup_batch, probe)
+        if got != [oracle.get(k) for k in probe]:
+            raise AssertionError(f"probe burst {b} differs from the dict")
+    backend.record = None
+    grew = index_path_end(
+        "hash", backend, t0, before, n_updates + 64 * 64,
+        f"the load: {len(keys)} inserts, {len(keys) / insert_s:.1f} a "
+        f"second; {n_updates} updates in "
+        f"{update_s:.3f} s, 64 probe bursts of 64; {h.splits} splits, "
+        f"global depth {h.global_depth}, {len(h.buckets)} buckets, "
+        f"write buffer {dataclasses.asdict(h.write_buffer.stats)}",
+        {"hash split": 2 * min(h.splits, N_COMPARED),
+         "hash probe": 2 * N_COMPARED})
+    want = {"sim_search": h.splits + 64, "sim_gather": h.splits + 64}
+    if grew != want:
+        raise AssertionError(f"hash path launched {grew}, expected {want}")
+    return grew
+
+
+def secondary_path(n_rows) -> dict:
+    """SimSecondaryIndex over ``n_rows`` rows of the range-query example's
+    codec (gender 1, age 7, salary 20, uid 32 bits): gender == 1, then
+    2001 <= salary < 7000 exact and approximate, each one ``sim_plan``
+    flush over every page and one ``sim_gather`` flush, against the
+    decoded predicate."""
+    rng = np.random.default_rng(29)
+    codec = RowCodec([Column(*c) for c in SECONDARY_COLUMNS])
+    rows = {"gender": rng.integers(0, 2, n_rows),
+            "age": rng.integers(18, 96, n_rows),
+            "salary": rng.integers(0, 200_000, n_rows),
+            "uid": np.arange(n_rows)}
+    n_pages = -(-n_rows // ROWS_PER_PAGE)
+    chips = SimChipArray(n_chips=16, pages_per_chip=-(-n_pages // 16) + 1,
+                         device_seed=13)
+    backend = IndexBackend(chips)
+    before, t0 = index_path_begin()
+    si = SimSecondaryIndex(backend, codec)
+    si.load_rows(rows)
+    sal = rows["salary"]
+    cases = [("equals", si.select_equals, ("gender", 1),
+              rows["gender"] == 1),
+             ("exact range", si.select_range, ("salary", 2001, 7000),
+              (sal >= 2001) & (sal < 7000)),
+             ("approximate range",
+              lambda *a: si.select_range(*a, exact=False),
+              ("salary", 2001, 7000), (sal >= 2001) & (sal < 7000))]
+    times = []
+    for label, fn, args, want in cases:
+        t1, c1 = time.perf_counter(), backend.compare_s
+        backend.record = f"secondary {label}"
+        got = counted(f"select {label}", {"sim_plan": 1, "sim_gather": 1},
+                      fn, *args)
+        run_s = time.perf_counter() - t1 - (backend.compare_s - c1)
+        times.append(f"{label} {run_s:.3f} s, {got.size} rows")
+        if not np.array_equal(np.sort(codec.decode_rows(got, "uid")),
+                              np.nonzero(want)[0]):
+            raise AssertionError(f"select {label} differs from the decoded "
+                                 "predicate")
+    backend.record = None
+    grew = index_path_end(
+        "secondary", backend, t0, before, len(cases),
+        f"{n_rows} rows on {si.n_pages} pages; {'; '.join(times)}; "
+        f"plan passes {[codec.range('salary', 2001, 7000, exact=e).n_passes for e in (True, False)]} "
+        f"(exact, approximate)",
+        {f"secondary {label}": 2 for label, *_ in cases})
+    want = {"sim_plan": 3, "sim_gather": 3}
+    if grew != want:
+        raise AssertionError(f"secondary path launched {grew}, expected "
+                             f"{want}")
+    plan_flush_ms("secondary exact range", backend, si._page_addrs(),
+                  codec.range("salary", 2001, 7000, exact=True))
+    return grew
+
+
+def database_index_path() -> dict:
+    """The slice's entry point on the card, its launch counts set to 0 just
+    before and read just after; its numbers must equal the CPU run's (the
+    plain versions)."""
+    native.reset_launches()
+    card = database_index.main()
+    torch.cuda.synchronize()
+    grew = {k: v for k, v in native.LAUNCHES.items() if v}
+    cpu = database_index.main(device="cpu")
+    if card != cpu:
+        raise AssertionError("database_index on the card differs from the "
+                             "plain versions on the CPU")
+    want = {"sim_lookup": 1, "sim_plan": 1, "sim_search": card["splits"] + 1,
+            "sim_gather": card["splits"] + 2}
+    if grew != want or not card["hash_ok"]:
+        raise AssertionError(f"database_index launched {grew}, expected "
+                             f"{want}")
+    log(f"database_index: {card['lookups_agreed']} lookups agree with the "
+        f"baseline ({card['sim_io_bytes']} B against "
+        f"{card['baseline_io_bytes']} B), range {len(card['range_rows'])} "
+        f"rows, {card['splits']} splits, directory depth "
+        f"{card['global_depth']}; equal to the plain versions; launches "
+        f"{grew}")
+    return grew
+
+
+def index_phase(kp) -> dict:
+    """The §V indexes on the batched backend, each path's launch counts set
+    to 0 just before it and read just after it: the B+Tree at ``kp``
+    leaves, the hash index at ``2 * kp`` inserts, the secondary index at
+    ``64 * kp`` rows, then ``repro_torch.database_index``.  Returns the
+    launches by kernel summed over the paths."""
+    launches = {k: 0 for k in native.LAUNCHES}
+    for grew in (btree_path(kp), hash_path(2 * kp), secondary_path(64 * kp),
+                 database_index_path()):
+        for k, v in grew.items():
+            launches[k] += v
+    for k in INDEX_KERNELS:
+        if launches[k] == 0:
+            raise AssertionError(f"{k} never launched on the index paths")
+    log("indexes: every lookup, range, probe and select equals its numpy "
+        "oracle, the first bursts of each kind equal ScalarBackend response "
+        "by response with equal result_bytes, every call made its exact "
+        "launches")
+    return launches
+
+
 def quickstart_path() -> dict:
     """The quickstart on the card, its launch counts set to 0 just before
     and read just after; its outputs must equal the CPU run's (the plain
@@ -1283,17 +1753,17 @@ def main(argv=None) -> int:
     # 2. Kernel checks (these launches are not the main paths').
     rows = kernel_checks(dev)
 
-    # 3.-5. The main paths.
+    # 3.-6. The main paths.
     launches = main_path(args.key_pages, args.n_ops)
-    for grew in (quickstart_path(), serve_path(dev),
-                 reduced_serve_path(dev)):
+    for grew in (index_phase(args.key_pages), quickstart_path(),
+                 serve_path(dev), reduced_serve_path(dev)):
         for k in launches:
             launches[k] += grew[k]
     for k in KERNELS:
         if launches[k] == 0:
             raise AssertionError(f"{k} never launched on the main paths")
 
-    # 6. Kernels line.
+    # 7. Kernels line.
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],
          "replaces": KERNELS[k][1], "launches": launches[k],
@@ -1301,7 +1771,7 @@ def main(argv=None) -> int:
          "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
          "bound_by": r["bound"][1], "library_ms": r.get("library_ms")}
         for k, r in rows.items()]}), flush=True)
-    # 7. The card, then the result.
+    # 8. The card, then the result.
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -5,12 +5,18 @@ enqueue commands against a backend and flush, which is what turns a YCSB
 read burst into one device operation instead of a per-page command storm
 (paper §IV-E batch matching).
 
-The port so far implements one backend, ``BatchedKernelBackend``
-(batched.py): stored pages stay device resident in a ``PlaneStore`` arena
-(planestore.py), queued searches run as one ``sim_search`` launch, queued
-gathers as one ``sim_gather`` launch, queued range plans as one
-``sim_plan`` launch and queued lookups as one fused lookup launch, with
-the per-page randomization stream regenerated in-kernel.
+Two interchangeable implementations ship in the port:
+
+  * ``ScalarBackend`` (scalar.py) — the numpy ``SimChip``/``SimChipArray``
+    functional model, executing queued commands one page at a time on the
+    host.  This is the bit-exact reference, with the full latch/ECC
+    machinery; ``as_backend`` wraps a bare chip array in it.
+  * ``BatchedKernelBackend`` (batched.py) — stored pages stay device
+    resident in a ``PlaneStore`` arena (planestore.py), queued searches run
+    as one ``sim_search`` launch, queued gathers as one ``sim_gather``
+    launch, queued range plans as one ``sim_plan`` launch and queued
+    lookups as one fused lookup launch, with the per-page randomization
+    stream regenerated in-kernel.
 
 The write path is deferred: ``submit_program`` queues a full-page entry
 image; repeated programs of one page within a burst coalesce last-wins and
@@ -243,21 +249,31 @@ class MatchBackend(abc.ABC):
         """Number of queued, unresolved commands."""
 
 
+def as_backend(chips_or_backend) -> MatchBackend:
+    """Adapt a raw SimChipArray to the reference backend (API compat)."""
+    if isinstance(chips_or_backend, MatchBackend):
+        return chips_or_backend
+    from .scalar import ScalarBackend
+    return ScalarBackend(chips_or_backend)
+
+
 # Backends of the JAX package that the port has not reached yet, and the
 # slice of the port (ROADMAP.md) that brings each.
-_LATER = {"scalar": "the scalar reference backend (slice 4 of the port)",
-          "sharded": "the sharded SSD backend (slice 6 of the port)"}
+_LATER = {"sharded": "the sharded SSD backend (slice 6 of the port)"}
 
 
 def make_backend(name: str, chips: SimChipArray, **kw) -> MatchBackend:
-    """Factory: ``batched`` (single-arena CUDA fast path).  ``device=None``
-    runs on the current CUDA device; pass ``device="cpu"`` for the plain
-    PyTorch versions of the kernels."""
+    """Factory: ``scalar`` (the host reference) or ``batched`` (single-arena
+    CUDA fast path).  For ``batched``, ``device=None`` runs on the current
+    CUDA device; pass ``device="cpu"`` for the plain PyTorch versions of
+    the kernels."""
     from .batched import BatchedKernelBackend
-    if name == "batched":
-        return BatchedKernelBackend(chips, **kw)
+    from .scalar import ScalarBackend
+    backends = {"scalar": ScalarBackend, "batched": BatchedKernelBackend}
+    if name in backends:
+        return backends[name](chips, **kw)
     if name in _LATER:
         raise NotImplementedError(f"backend {name!r} is not ported yet: "
                                   f"{_LATER[name]}")
     raise ValueError(f"unknown backend {name!r}; pick from "
-                     f"{sorted(['batched', *_LATER])}")
+                     f"{sorted([*backends, *_LATER])}")

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.backend.base import MatchBackend
+from repro_torch.backend.base import MatchBackend, as_backend
 from repro_torch.buffer.writebuffer import WriteBuffer
 from repro_torch.core.bits import SLOTS_PER_CHUNK, unpack_bitmap
 from repro_torch.core.commands import Command
@@ -44,13 +44,10 @@ class ReplayCore:
         if workload.keys is None:
             raise ValueError("workload has no key stream "
                              "(regenerate with ycsb.generate)")
-        if not isinstance(backend, MatchBackend):
-            raise NotImplementedError(
-                "replay needs a MatchBackend; wrapping a bare SimChipArray "
-                "in the scalar reference backend is slice 4 of the port")
         self.workload = workload
         self.config = config
-        self.backend = backend
+        # A bare SimChipArray runs on the scalar reference backend.
+        self.backend = backend = as_backend(backend)
         self.n_key_pages = workload.n_index_pages // 2
         self.n_keys = self.n_key_pages * KEYS_PER_PAGE
         self.stored_keys = np.arange(1, self.n_keys + 1, dtype=np.uint64)

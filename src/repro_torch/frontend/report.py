@@ -1,18 +1,33 @@
-"""RunReport: the result schema of the workload replay.
+"""RunReport: the one result schema of every workload executor.
 
 The same nested sections as the JAX package's report — ``latency`` /
 ``energy`` / ``counters`` / ``reliability`` / ``faults`` — so results read
-the same in both packages.  The serial replay fills the counters and the
-bit-exact per-op outputs (read values and hits, scan counts); the other
-sections stay at their defaults until the paths that fill them (the
-timeline-coupled sharded backend, the reliability and device-fault tiers,
-the event frontend) are ported.
+the same in both packages.  Two executors fill it so far:
+
+  * the analytic simulator (``workload.runner.run`` →
+    :meth:`RunReport.from_analytic`): latency percentiles, energy and the
+    SSD resource counters;
+  * the serial functional replay (``repro_torch.frontend.replay``): the
+    backend counters and the bit-exact per-op outputs (read values and
+    hits, scan counts).
+
+The remaining sections stay at their defaults until the paths that fill
+them (the timeline-coupled sharded backend, the reliability and
+device-fault tiers, the event frontend) are ported.  The flat attribute
+names of both executors' results (``report.read_median_ns``,
+``report.n_reads``, ...) are read-only properties over the sections.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+
+
+def _percentile(lats, q: float) -> float:
+    if lats is None or len(lats) == 0:
+        return 0.0
+    return float(np.percentile(np.asarray(lats), q))
 
 
 @dataclasses.dataclass
@@ -28,6 +43,19 @@ class LatencyReport:
     read_latencies_ns: np.ndarray | None = None   # per read op
     burst_latencies_ns: np.ndarray | None = None  # per backend flush
     write_latencies_ns: np.ndarray | None = None  # per page program
+
+    @classmethod
+    def from_read_latencies(cls, lats, *, makespan_ns: float = 0.0,
+                            n_ops: int = 0, **kw) -> "LatencyReport":
+        qps = n_ops / (makespan_ns / 1e9) if makespan_ns > 0 else 0.0
+        return cls(read_p50_ns=_percentile(lats, 50),
+                   read_p25_ns=_percentile(lats, 25),
+                   read_p75_ns=_percentile(lats, 75),
+                   read_p99_ns=_percentile(lats, 99),
+                   qps=qps, makespan_ns=makespan_ns,
+                   read_latencies_ns=(np.asarray(lats, dtype=np.float64)
+                                      if lats is not None and len(lats)
+                                      else None), **kw)
 
 
 @dataclasses.dataclass
@@ -94,8 +122,8 @@ class FaultReport:
 
 @dataclasses.dataclass
 class RunReport:
-    """One run, one shape."""
-    source: str = "serial"
+    """One run, one shape — analytic or serial replay."""
+    source: str = "serial"       # "analytic" | "serial"
     latency: LatencyReport = dataclasses.field(default_factory=LatencyReport)
     energy: EnergyReport = dataclasses.field(default_factory=EnergyReport)
     counters: CounterReport = dataclasses.field(
@@ -109,7 +137,30 @@ class RunReport:
     scan_counts: np.ndarray | None = None   # (N,) int64, 0 off-scan ops
     trace: tuple = ()
 
+    # ----------------------------------------------------------- builders
+    @classmethod
+    def from_analytic(cls, *, qps, read_median_ns, read_p25_ns, read_p75_ns,
+                      read_p99_ns, energy_pj, programs, senses,
+                      internal_bytes, pcie_bytes, cache_hit_rate,
+                      absorbed_writes, batched_searches, makespan_ns,
+                      writes=0, scans=0, reads=0) -> "RunReport":
+        """Package the closed-form simulator's measurement window."""
+        return cls(
+            source="analytic",
+            latency=LatencyReport(
+                read_p50_ns=read_median_ns, read_p25_ns=read_p25_ns,
+                read_p75_ns=read_p75_ns, read_p99_ns=read_p99_ns,
+                qps=qps, makespan_ns=makespan_ns),
+            energy=EnergyReport(total_pj=energy_pj),
+            counters=CounterReport(
+                reads=reads, writes=writes, scans=scans, programs=programs,
+                senses=senses, internal_bytes=internal_bytes,
+                pcie_bytes=pcie_bytes, cache_hit_rate=cache_hit_rate,
+                absorbed_writes=absorbed_writes,
+                batched_searches=batched_searches))
+
     # ------------------------------------------------- flat aliases
+    # Functional replay names.
     @property
     def n_reads(self) -> int:
         return self.counters.reads
@@ -149,3 +200,96 @@ class RunReport:
     @property
     def buffer_read_hits(self) -> int:
         return self.counters.buffer_read_hits
+
+    @property
+    def burst_latencies_ns(self):
+        return self.latency.burst_latencies_ns
+
+    @property
+    def write_latencies_ns(self):
+        return self.latency.write_latencies_ns
+
+    @property
+    def sim_makespan_ns(self) -> float:
+        return self.latency.makespan_ns
+
+    @property
+    def sim_energy_pj(self) -> float:
+        return self.energy.total_pj
+
+    @property
+    def read_errors(self):
+        return self.reliability.read_errors
+
+    @property
+    def n_read_errors(self) -> int:
+        return self.reliability.n_read_errors
+
+    @property
+    def refreshes(self) -> int:
+        return self.reliability.refreshes
+
+    @property
+    def reliability_stats(self):
+        return self.reliability.stats
+
+    # Analytic simulator names.
+    @property
+    def qps(self) -> float:
+        return self.latency.qps
+
+    @property
+    def read_median_ns(self) -> float:
+        return self.latency.read_p50_ns
+
+    @property
+    def read_p25_ns(self) -> float:
+        return self.latency.read_p25_ns
+
+    @property
+    def read_p75_ns(self) -> float:
+        return self.latency.read_p75_ns
+
+    @property
+    def read_p99_ns(self) -> float:
+        return self.latency.read_p99_ns
+
+    @property
+    def energy_pj(self) -> float:
+        return self.energy.total_pj
+
+    @property
+    def senses(self) -> int:
+        return self.counters.senses
+
+    @property
+    def internal_bytes(self) -> int:
+        return self.counters.internal_bytes
+
+    @property
+    def pcie_bytes(self) -> int:
+        return self.counters.pcie_bytes
+
+    @property
+    def cache_hit_rate(self) -> float:
+        return self.counters.cache_hit_rate
+
+    @property
+    def absorbed_writes(self) -> int:
+        return self.counters.absorbed_writes
+
+    @property
+    def batched_searches(self) -> int:
+        return self.counters.batched_searches
+
+    @property
+    def makespan_ns(self) -> float:
+        return self.latency.makespan_ns
+
+    @property
+    def writes(self) -> int:
+        return self.counters.writes
+
+    @property
+    def scans(self) -> int:
+        return self.counters.scans

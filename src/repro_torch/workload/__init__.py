@@ -1,1 +1,1 @@
-"""Workload generators of the port."""
+"""Workload generators and the analytic runner of the port."""

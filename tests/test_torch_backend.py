@@ -411,7 +411,7 @@ def test_plan_path_queues_and_resolves():
     assert (int(t.result().bitmap_words[0]) >> 10) & 1
 
 
-@pytest.mark.parametrize("name", ["scalar", "sharded"])
+@pytest.mark.parametrize("name", ["sharded"])
 def test_unported_backends_raise_not_implemented(name):
     with pytest.raises(NotImplementedError, match="slice"):
         make_backend(name, SimChipArray(2, 4), device="cpu")

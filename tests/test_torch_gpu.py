@@ -15,12 +15,17 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import database_index
 from repro_torch.backend import make_backend
+from repro_torch.core.bitweaving import Column, RowCodec
 from repro_torch.core.commands import Command
 from repro_torch.core.engine import SimChipArray
 from repro_torch.core.range_query import (RangePlan, approximate_range,
                                           exact_range)
 from repro_torch.frontend import RunConfig, replay
+from repro_torch.index.btree import SimBTree
+from repro_torch.index.hashindex import BUCKET_CAPACITY, SimHashIndex
+from repro_torch.index.secondary import SimSecondaryIndex
 from repro_torch.kernels import native
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -683,3 +688,133 @@ def test_reprogram_between_flush_and_drain_on_card(kind):
                 (b.value_slot, b.value, b.parity_ok)
             a, b = a.search, b.search
         np.testing.assert_array_equal(a.bitmap_words, b.bitmap_words)
+
+
+# ------------------------------------------------------- the §V indexes
+
+def _index_backends(n_chips, per_chip):
+    """(the batched backend on the card, ScalarBackend) over two fresh chip
+    arrays of one geometry."""
+    dev = _cuda_or_skip()
+    return (make_backend("batched", SimChipArray(n_chips, per_chip),
+                         device=dev),
+            make_backend("scalar", SimChipArray(n_chips, per_chip)))
+
+
+def _grew(before):
+    torch.cuda.synchronize()
+    return {k: native.LAUNCHES[k] - before[k] for k in before
+            if native.LAUNCHES[k] != before[k]}
+
+
+@pytest.mark.gpu
+def test_btree_on_card_matches_scalar():
+    card, ref = _index_backends(8, 64)
+    rng = np.random.default_rng(42)
+    keys = (rng.choice(10**9, size=3000, replace=False) + 1).astype(np.uint64)
+    trees = [SimBTree(be) for be in (card, ref)]
+    for t in trees:
+        t.bulk_load(keys, keys * np.uint64(13))
+    probes = [int(k) for k in keys[::100]] + [int(keys[0]) + 1,
+                                              int(keys.min()) - 1]
+    before = dict(native.LAUNCHES)
+    got = trees[0].lookup_batch(probes)
+    assert _grew(before) == {"sim_lookup": 1}
+    assert got == trees[1].lookup_batch(probes)
+    assert got[:30] == [int(k) * 13 for k in keys[::100]]
+    before = dict(native.LAUNCHES)
+    assert trees[0].lookup_batch([0, 1]) == [None, None]
+    assert _grew(before) == {}                 # below the first separator
+    for q in ((40, 43), (0, 100)):
+        lo, hi = (int(np.percentile(keys, q[0])),
+                  int(np.percentile(keys, q[1])))
+        before = dict(native.LAUNCHES)
+        rows = trees[0].range_query(lo, hi)
+        assert _grew(before) == {"sim_plan": 1, "sim_gather": 1}
+        assert rows == trees[1].range_query(lo, hi)
+        assert sorted(rows) == sorted((int(k), int(k) * 13) for k in keys
+                                      if lo <= k < hi)
+    assert trees[0].stats == trees[1].stats
+    assert card.stats.result_bytes == ref.stats.result_bytes
+
+
+@pytest.mark.gpu
+def test_hash_split_on_card_after_buffered_inserts():
+    """A split right after buffered inserts: the buffer's reprogram lands
+    in the arena before the split's search reads the key page (one
+    stream), and each split is one sim_search and one sim_gather."""
+    card, ref = _index_backends(4, 256)
+    rng = np.random.default_rng(5)
+    keys = (rng.choice(10**9, size=4 * BUCKET_CAPACITY + 1,
+                       replace=False) + 1).astype(np.uint64)
+    idx = [SimHashIndex(be, global_depth=0, write_high_water=10**6)
+           for be in (card, ref)]
+    for h in idx:
+        for k in keys[:BUCKET_CAPACITY]:
+            h.insert(int(k), int(k) % 1013)
+    assert idx[0].write_buffer.n_dirty == 2
+    before = dict(native.LAUNCHES)
+    for h in idx:
+        h.insert(int(keys[BUCKET_CAPACITY]), 1)
+    assert idx[0].splits == 1
+    assert _grew(before) == {"sim_search": 1, "sim_gather": 1}
+    assert idx[0].split_gathered_chunks == idx[1].split_gathered_chunks
+    assert idx[0].split_gathered_chunks == 63   # mask 0: every user chunk
+    for h in idx:
+        for k in keys[BUCKET_CAPACITY + 1:]:
+            h.insert(int(k), int(k) % 1013)
+    assert idx[0].splits == idx[1].splits > 1
+    probes = [int(k) for k in keys[::9]] + [10**12 + 7]
+    idx[0].flush_writes()
+    before = dict(native.LAUNCHES)
+    got = idx[0].lookup_batch(probes)
+    assert _grew(before) == {"sim_search": 1, "sim_gather": 1}
+    assert got == idx[1].lookup_batch(probes)
+    assert got[:-1] == [k % 1013 if i != BUCKET_CAPACITY else 1
+                        for i, k in enumerate(int(k) for k in keys)][::9]
+    assert (idx[0].global_depth, idx[0].directory) == \
+        (idx[1].global_depth, idx[1].directory)
+    assert card.stats.result_bytes == ref.stats.result_bytes
+
+
+@pytest.mark.gpu
+def test_secondary_index_on_card_matches_scalar():
+    card, ref = _index_backends(4, 64)
+    rng = np.random.default_rng(4)
+    codec = RowCodec([Column("gender", 1), Column("age", 7),
+                      Column("salary", 20), Column("uid", 32)])
+    n = 3000
+    rows = {"gender": rng.integers(0, 2, n), "age": rng.integers(0, 128, n),
+            "salary": rng.integers(0, 10_000, n), "uid": np.arange(n)}
+    idx = [SimSecondaryIndex(be, codec) for be in (card, ref)]
+    for si in idx:
+        si.load_rows(rows)
+    before = dict(native.LAUNCHES)
+    fem = idx[0].select_equals("gender", 1)
+    assert _grew(before) == {"sim_plan": 1, "sim_gather": 1}
+    np.testing.assert_array_equal(fem, idx[1].select_equals("gender", 1))
+    want = set(np.nonzero((rows["salary"] >= 2001)
+                          & (rows["salary"] < 7000))[0].tolist())
+    for exact in (True, False):
+        before = dict(native.LAUNCHES)
+        got = idx[0].select_range("salary", 2001, 7000, exact=exact)
+        assert _grew(before) == {"sim_plan": 1, "sim_gather": 1}
+        np.testing.assert_array_equal(
+            got, idx[1].select_range("salary", 2001, 7000, exact=exact))
+        assert set(codec.decode_rows(got, "uid").tolist()) == want
+    assert (idx[0].io_bitmap_bytes, idx[0].io_chunk_bytes) == \
+        (idx[1].io_bitmap_bytes, idx[1].io_chunk_bytes)
+    assert card.stats.result_bytes == ref.stats.result_bytes
+
+
+@pytest.mark.gpu
+def test_database_index_on_card_matches_cpu():
+    _cuda_or_skip()
+    before = dict(native.LAUNCHES)
+    card = database_index.main()
+    grew = _grew(before)
+    assert card == database_index.main(device="cpu")
+    assert card["hash_ok"] and card["splits"] > 0
+    assert grew == {"sim_lookup": 1, "sim_plan": 1,
+                    "sim_search": card["splits"] + 1,
+                    "sim_gather": 1 + card["splits"] + 1}

@@ -121,8 +121,9 @@ def test_replay_releases_the_backend(workload, fused):
 
 
 def test_scans_and_bare_chip_arrays_raise_not_implemented():
-    """Scans are ported (one fused plan launch a scan); a bare chip array
-    still raises until the scalar reference backend is ported."""
+    """Scans are ported (one fused plan launch a scan), and a bare chip
+    array replays on the scalar reference backend with the batched
+    backend's values and no launch."""
     wl = generate(50, n_key_pages=2, read_ratio=0.5, alpha=0.0, seed=1,
                   scan_ratio=0.3)
     be = make_backend("batched", SimChipArray(2, 4), device="cpu")
@@ -132,5 +133,9 @@ def test_scans_and_bare_chip_arrays_raise_not_implemented():
     assert (rep.scan_counts[scans] > 0).all()
     assert be.stats.plans == rep.n_scans
     wl = generate(50, n_key_pages=2, read_ratio=0.5, alpha=0.0, seed=1)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        replay(wl, SimChipArray(2, 4))
+    bare = replay(wl, SimChipArray(2, 4))
+    batched = replay(wl, make_backend("batched", SimChipArray(2, 4),
+                                      device="cpu"))
+    np.testing.assert_array_equal(bare.read_values, batched.read_values)
+    assert bare.read_hits[wl.ops == 0].all()
+    assert bare.kernel_launches == 0 < batched.kernel_launches
