@@ -16,13 +16,30 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    ``sim_search``, ``sim_lookup`` and ``sim_gather`` are also checked
    reading their pages in place from an arena of the replay's size
    (32,768 rows, 128 MiB, over the 50 MB L2), and timed cold there, 64
-   fresh random rows a launch: the device work of a flush.
+   fresh random rows a launch: the device work of a flush.  The chip-axis
+   forms of ``sim_search`` (in place, Q = 64 and R = 64 a chip) and
+   ``sim_plan`` (G = 2, P = 16, R = 32 a chip) are checked at C = 1, 3 and
+   16 chips, pad chips, pad rows and rows repeated across chips included,
+   and timed beside one flat launch of as many cells (chip 0's queries or
+   plan groups over every chip's rows).
 3. Replays through ``repro_torch.frontend.replay`` on the ``batched``
    backend, each checked against a numpy oracle of serial semantics:
    YCSB-B split and fused (they must also agree), YCSB-E range scans
    (fused, one ``sim_plan`` launch a scan; the first scans are also held
    against the per-pass search path) and YCSB-A through the §VI DRAM write
    buffer (fused).
+   Then the sharded SSD (``ShardedSsdBackend``, 8 channels x 2 dies, the
+   flash timeline on): YCSB-B split and fused and YCSB-E scans at the same
+   size, held to the oracle and to the batched replays' values and
+   launches (one chip-axis ``sim_search`` or ``sim_plan`` launch a search
+   or plan phase), one simulated burst latency a flush; each chip-axis
+   form is timed on the operands of its most frequent launch shape there.
+   At the same size, ``RunConfig.event_serial()`` against the serial
+   sharded replay and one open-loop point (read_priority, 8 streams), its
+   read values held to the oracle in the event loop's dispatch order.
+   Then, at 1,024 key pages and 2,000 ops, the timeline on the card
+   against the same replay on the CPU, and the open-loop point's simulated
+   latencies against the scalar backend's.
 4. The §V indexes on the ``batched`` backend, each path against a numpy
    oracle, with the first bursts of each kind also run on
    ``ScalarBackend`` over a copy of the stored pages and held equal
@@ -53,10 +70,10 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
 The launch counts are set to 0 just before each path of phases 3–6 and
 read just after it; they show which kernels ran on that path.  The replay
 scale is 20% of the paper's 650 MiB index: 16,384 key pages and 16,384
-value pages of 4 KiB on 16 chips, for every replay path; the B+Tree has as
-many leaves.  ``--key-pages`` and ``--n-ops`` cut them for a quick check
-(the hash index takes two inserts a key page, the secondary index 64
-rows a key page).
+value pages of 4 KiB on 16 chips, for every replay path, the sharded ones
+included; the B+Tree has as many leaves.  ``--key-pages`` and ``--n-ops``
+cut them for a quick check (the hash index takes two inserts a key page,
+the secondary index 64 rows a key page).
 """
 from __future__ import annotations
 
@@ -76,7 +93,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import database_index, quickstart  # noqa: E402
 from repro_torch.backend import (BatchedKernelBackend,  # noqa: E402
-                                 ScalarBackend)
+                                 ScalarBackend, ShardedSsdBackend)
+from repro_torch.backend import sharded as sharded_backend  # noqa: E402
 from repro_torch.backend.batched import PAGE_BLOCK  # noqa: E402
 from repro_torch.backend.planestore import next_pow2, padded_rows  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
@@ -107,12 +125,15 @@ from repro_torch.kernels.sim_fused.ref import (sim_fused_ref,  # noqa: E402
                                                sim_lookup_ref)
 from repro_torch.kernels.sim_gather.ops import sim_gather  # noqa: E402
 from repro_torch.kernels.sim_gather.ref import sim_gather_ref  # noqa: E402
-from repro_torch.kernels.sim_plan.ops import sim_plan  # noqa: E402
+from repro_torch.kernels.sim_plan.ops import (sim_plan,  # noqa: E402
+                                              sim_plan_chips)
 from repro_torch.kernels.sim_plan.ref import (plan_pass_rows,  # noqa: E402
+                                              sim_plan_chips_ref,
                                               sim_plan_ref)
-from repro_torch.kernels.sim_search.ops import sim_search  # noqa: E402
-from repro_torch.kernels.sim_search.ref import (sim_search_ref,  # noqa: E402
-                                                stream_planes)
+from repro_torch.kernels.sim_search.ops import (sim_search,  # noqa: E402
+                                                sim_search_chips)
+from repro_torch.kernels.sim_search.ref import (  # noqa: E402
+    sim_search_chips_ref, sim_search_ref, stream_planes)
 from repro_torch.kernels.timing import (ARENA_ROWS,  # noqa: E402
                                         ITERS as COLD_ITERS, cold_ms,
                                         device_ms, planted_lookup_queries,
@@ -621,6 +642,153 @@ def fused_bound(n_pages, n_queries, max_out):
     return ops, nbytes
 
 
+# ------------------------------------------------- chip-axis forms
+# The sharded backend's launch shapes: C chips, the last a pad chip (rows
+# at arena row 0, pad queries or PAD plan rows) when C > 1.
+CHIP_COUNTS = (1, 3, 16)
+
+
+def chip_axis_rows(rows_per_chip, pad):
+    """(C, R) arena rows from each chip's own rows; with ``pad``, chip 1
+    repeats a row of chip 0, every chip's last four rows are pad rows
+    (row 0) and, with C > 1, the last chip is a pad chip."""
+    rows = np.stack(rows_per_chip).astype(np.int32)
+    if pad:
+        rows[:, -4:] = 0
+        if len(rows) > 1:
+            rows[1, 0] = rows[0, 1]
+            rows[-1] = 0
+    return rows
+
+
+def search_chips_checks(dev, arena, floor_ms) -> dict:
+    """The chip-axis ``sim_search`` in place at Q = 64 and R = 64 a chip,
+    C = 1, 3 and 16: chip c's case (planted hits) in random rows of the
+    replay-sized arena.  The plain version through the rows equals each
+    case's own planes; the kernel equals the plain version, also with pad
+    chips, pad rows and a row repeated across chips.  Timed warm beside one
+    flat launch of as many (query, page) cells: chip 0's 64 queries over
+    all C * 64 rows."""
+    lo, hi, ids, seeds = arena
+    out = {}
+    for n_chips in CHIP_COUNTS:
+        rng = np.random.default_rng(100 + n_chips)
+        picks = rng.choice(np.arange(1, ARENA_ROWS), 64 * n_chips,
+                           replace=False).reshape(n_chips, 64)
+        cases, err = [], 0
+        for c in range(n_chips):
+            args, planted = search_case(dev, 64, 64, 200 + 17 * n_chips + c)
+            place(arena, picks[c], [args[0], args[1], args[4], args[5]])
+            cases.append((args, planted))
+        q = torch.stack([args[2] for args, _ in cases])
+        m = torch.stack([args[3] for args, _ in cases])
+        for pad in (False, True):
+            idx = torch.from_numpy(chip_axis_rows(list(picks), pad)).to(dev)
+            plain = sim_search_chips_ref(lo, hi, q, m, ids, seeds,
+                                         randomized=True, rows=idx)
+            err = max(err, max_abs_err(
+                [sim_search_chips(lo, hi, q, m, ids, seeds, randomized=True,
+                                  rows=idx)], [plain]))
+            if pad:
+                continue
+            for c, (args, planted) in enumerate(cases):
+                check_search_hits(plain[c], planted)
+                if max_abs_err([plain[c]],
+                               [sim_search_ref(*args, randomized=True)]):
+                    raise AssertionError("chip-axis search through arena "
+                                         "rows differs from the case's planes")
+        del cases
+        ms_chips = device_ms(lambda: sim_search_chips(
+            lo, hi, q, m, ids, seeds, randomized=True, rows=idx), 200)
+        flat_rows = idx.reshape(-1)
+        ms_flat = device_ms(lambda: sim_search(
+            lo, hi, q[0], m[0], ids, seeds, randomized=True,
+            rows=flat_rows), 200)
+        plain_ms = device_ms(lambda: sim_search_chips_ref(
+            lo, hi, q, m, ids, seeds, randomized=True, rows=idx),
+            20 if n_chips < 16 else 3)
+        work = search_bound(64, 64, in_place=True)
+        b = bound(n_chips * work[0], n_chips * work[1])
+        out[n_chips] = dict(max_abs_err=err, ms=ms_chips, flat_ms=ms_flat,
+                            plain_ms=plain_ms, bound=b)
+        log(f"kernel sim_search chip axis [C={n_chips}, Q=64 x R=64 a chip, "
+            f"in place{', last chip a pad chip' if n_chips > 1 else ''}]: "
+            f"bit-exact vs plain; {ms_chips:.6f} ms/launch "
+            f"({ms_chips - floor_ms:.6f} above the launch floor), one flat "
+            f"launch of as many cells (chip 0's Q=64 x N={64 * n_chips}) "
+            f"{ms_flat:.6f} ms, plain {plain_ms:.6f} ms, bound {b[0]:.6f} ms "
+            f"({b[1]})")
+    return out
+
+
+def plan_chips_checks(dev, floor_ms) -> dict:
+    """The chip-axis ``sim_plan`` at G = 2, P = 16 and R = 32 a chip, C = 1,
+    3 and 16, over copied planes (as the sharded flush's ``take2d`` gives
+    them): chip c runs the check plan of ``plan_case`` (exact range with an
+    exclude) and one of its other groups (exclude only, approximate, all
+    PAD).  The plain version equals direct evaluation on each real chip's
+    unpadded pages; the kernel equals the plain version, pad chip (PAD
+    rows) and pad rows (copies of one page) included.  Timed warm beside
+    one flat launch of as many (group, page) cells: chip 0's two groups
+    over all C * 32 pages.  That launch runs real passes on the pad chip's
+    pages too, where the chip-axis form runs only PAD rows."""
+    out = {}
+    for n_chips in CHIP_COUNTS:
+        parts, direct = [], []
+        for c in range(n_chips):
+            args, want, _, _ = plan_case(dev, 32, 16, "check",
+                                         300 + 17 * n_chips + c)
+            groups = [0, 1 + c % 3]
+            planes = [t.clone() for t in (args[0], args[1], args[5],
+                                          args[6])]
+            sel = [args[k][groups] for k in (2, 3, 4)]
+            direct.append(sim_plan_ref(*planes[:2], *sel, *planes[2:],
+                                       randomized=True))
+            check_plan_hits(direct[-1], want[groups], [(0, 101)],
+                            [(0, 102)])
+            parts.append((planes, sel))
+        pad_page = [p[0:1] for p in parts[0][0]]     # the pad rows' page
+        for c, (planes, sel) in enumerate(parts):
+            for p, pad in zip(planes, pad_page):
+                p[-4:] = pad
+            if n_chips > 1 and c == n_chips - 1:    # the pad chip
+                for p, pad in zip(planes, pad_page):
+                    p[:] = pad
+                for t in sel:
+                    t.zero_()
+        lo, hi, ids, seeds = (torch.stack([pl[i] for pl, _ in parts])
+                              for i in range(4))
+        q, m, f = (torch.stack([sl[i] for _, sl in parts]) for i in range(3))
+        chips_args = (lo, hi, q, m, f, ids, seeds)
+        plain = sim_plan_chips_ref(*chips_args, randomized=True)
+        err = max_abs_err([sim_plan_chips(*chips_args, randomized=True)],
+                          [plain])
+        for c in range(n_chips - (n_chips > 1)):    # the unpadded pages
+            if max_abs_err([plain[c, :, :-4]], [direct[c][:, :-4]]):
+                raise AssertionError("chip-axis plan differs from direct "
+                                     "evaluation of its chip's plans")
+        if n_chips > 1 and (plain[-1] != 0).any():
+            raise AssertionError("the pad chip's PAD rows matched")
+        ms_chips = device_ms(lambda: sim_plan_chips(*chips_args,
+                                                    randomized=True), 200)
+        flat = (lo.reshape(-1, 512), hi.reshape(-1, 512), q[0], m[0], f[0],
+                ids.reshape(-1), seeds.reshape(-1))
+        ms_flat = device_ms(lambda: sim_plan(*flat, randomized=True), 200)
+        plain_ms = device_ms(lambda: sim_plan_chips_ref(
+            *chips_args, randomized=True), 10 if n_chips < 16 else 3)
+        works = [plan_bound(f[c], 32) for c in range(n_chips)]
+        b = bound(sum(w[0] for w in works), sum(w[1] for w in works))
+        out[n_chips] = dict(max_abs_err=err, ms=ms_chips, flat_ms=ms_flat,
+                            plain_ms=plain_ms, bound=b)
+        log(f"kernel sim_plan chip axis [C={n_chips}, G=2, P=16, R=32 a chip"
+            f"{', last chip a pad chip' if n_chips > 1 else ''}]: bit-exact "
+            f"vs plain; {ms_chips:.6f} ms/launch ({ms_chips - floor_ms:.6f} "
+            f"above the launch floor), one flat launch of as many cells "
+            f"(chip 0's G=2 x N={32 * n_chips}) {ms_flat:.6f} ms, plain "
+            f"{plain_ms:.6f} ms, bound {b[0]:.6f} ms ({b[1]})")
+    return out
+
+
 # (label, dtype, (B, Sq, Sk, H, Hkv, D), masks): qwen3-4b's prefill and
 # decode shapes on the serve path, the reduced qwen3-4b's (16-wide heads),
 # and the JAX package's sweep shape.
@@ -774,6 +942,8 @@ def kernel_checks(dev) -> dict:
         f"{cold:.6f} ms/launch (the flush's device work; "
         f"{cold - floor_ms:.6f} above the launch floor); bound "
         f"{cold_bound[0]:.6f} ms ({cold_bound[1]})")
+    chips = search_chips_checks(dev, arena, floor_ms)
+    err = max([err] + [r["max_abs_err"] for r in chips.values()])
     rows["sim_search"] = dict(
         max_abs_err=err,
         ms=device_ms(lambda: sim_search(*args, randomized=True), 200),
@@ -862,6 +1032,8 @@ def kernel_checks(dev) -> dict:
             f"the launch floor), plain {timed[kind]['plain_ms']:.6f} ms, "
             f"bound {timed[kind]['bound'][0]:.6f} ms "
             f"({timed[kind]['bound'][1]})")
+    chips = plan_chips_checks(dev, floor_ms)
+    err = max([err] + [r["max_abs_err"] for r in chips.values()])
     rows["sim_plan"] = dict(
         max_abs_err=err, **timed["replay"],
         shape="replay scan: G=1, P=16, N=32, randomized, planted hits",
@@ -926,9 +1098,9 @@ def kernel_checks(dev) -> dict:
 
 
 # --------------------------------------------------------------- phase 3
-class TimedBackend(BatchedKernelBackend):
-    """The batched backend, timing the bulk load that replay() opens with
-    (its first ``n_load`` page programs) apart from the replayed ops."""
+class TimedLoad:
+    """A backend that times the bulk load replay() opens with (its first
+    ``n_load`` page programs) apart from the replayed ops."""
 
     def __init__(self, chips, n_load: int, **kw):
         super().__init__(chips, **kw)
@@ -945,16 +1117,27 @@ class TimedBackend(BatchedKernelBackend):
         return built
 
 
-def oracle(wl, n_key_pages):
+class TimedBackend(TimedLoad, BatchedKernelBackend):
+    pass
+
+
+class TimedSharded(TimedLoad, ShardedSsdBackend):
+    pass
+
+
+def oracle(wl, n_key_pages, order=None):
     """Serial semantics in plain numpy: reads see the latest write; a scan
     of key ids [k, k + len) counts the stored keys it covers, clipped to
-    the index, and leaves values alone."""
+    the index, and leaves values alone.  ``order`` is the order the ops
+    execute in (the event loop's dispatch order), by default the
+    workload's."""
     n_keys = n_key_pages * KEYS_PER_PAGE
     values = (np.arange(1, n_keys + 1, dtype=np.uint64)
               * np.uint64(0x9E3779B97F4A7C15)) | np.uint64(1)
     out = np.zeros(len(wl.ops), np.uint64)
     counts = np.zeros(len(wl.ops), np.int64)
-    for qi, (op, k) in enumerate(zip(wl.ops, wl.keys)):
+    for qi in range(len(wl.ops)) if order is None else order:
+        op, k = wl.ops[qi], wl.keys[qi]
         if op == 0:
             out[qi] = values[k]
         elif op == 1:
@@ -965,14 +1148,15 @@ def oracle(wl, n_key_pages):
     return out, counts
 
 
-def run_replay(label, wl, n_key_pages, n_chips, config):
+def run_replay(label, wl, n_key_pages, n_chips, config,
+               backend_cls=TimedBackend, **backend_kw):
     """One path: fresh chips, launch counts and peak device memory set to
     0 just before the replay and read just after it; the memory already
     allocated then (earlier phases' leftovers) is logged apart."""
     pages_per_chip = -(-2 * n_key_pages // n_chips) + 1
     chips = SimChipArray(n_chips=n_chips, pages_per_chip=pages_per_chip,
                          device_seed=7)
-    backend = TimedBackend(chips, n_load=2 * n_key_pages)
+    backend = backend_cls(chips, n_load=2 * n_key_pages, **backend_kw)
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1049,17 +1233,14 @@ def check_scan_plans(backend, wl, rep, n_key_pages, n_scans):
                                  f"{rep.scan_counts[qi]}")
 
 
-def main_path(kp, n_ops) -> dict:
-    """Four replays at full width on 16 chips, each path's launch counts
-    set to 0 just before it and read just after it; returns the launches
-    by kernel summed over the paths."""
-    n_chips = 16
-
+def ycsb_paths(kp, n_ops) -> list:
+    """(label, workload, config) of the replay paths: 20,000 ops, Zipf
+    0.9, seed 1, bursts of 64."""
     def ycsb(**kw):
         return generate(n_ops, n_key_pages=kp, alpha=0.9, seed=1, **kw)
 
     ycsb_b = ycsb(read_ratio=0.95)
-    paths = [
+    return [
         ("YCSB-B split", ycsb_b, RunConfig(burst=64)),
         ("YCSB-B fused", ycsb_b, RunConfig(burst=64, fused=True)),
         ("YCSB-E scans fused", ycsb(read_ratio=0.0, scan_ratio=0.95,
@@ -1069,19 +1250,27 @@ def main_path(kp, n_ops) -> dict:
          RunConfig(burst=64, fused=True, write_buffer=True,
                    write_high_water=16)),
     ]
+
+
+def main_path(kp, n_ops):
+    """Four replays at full width on 16 chips, each path's launch counts
+    set to 0 just before it and read just after it; returns the launches
+    by kernel summed over the paths, and each path's report and launches
+    by kernel."""
+    n_chips = 16
     launches = {k: 0 for k in native.LAUNCHES}
     reports, peaks = {}, []
-    for label, wl, config in paths:
+    for label, wl, config in ycsb_paths(kp, n_ops):
         rep, grew, backend, peak = run_replay(label, wl, kp, n_chips, config)
         peaks.append(peak)
         check_replay(label, wl, rep, grew, config, kp)
         if rep.n_scans:
             check_scan_plans(backend, wl, rep, kp, 200)
         del backend
-        reports[label] = rep
+        reports[label] = rep, grew
         for k in launches:
             launches[k] += grew[k]
-    split, fused = reports["YCSB-B split"], reports["YCSB-B fused"]
+    split, fused = reports["YCSB-B split"][0], reports["YCSB-B fused"][0]
     if not (np.array_equal(split.read_values, fused.read_values)
             and np.array_equal(split.read_hits, fused.read_hits)):
         raise AssertionError("YCSB-B split and fused replays disagree")
@@ -1094,6 +1283,237 @@ def main_path(kp, n_ops) -> dict:
         "to kernel_launches, one sim_plan launch a scan, fused launches == "
         "flushes, the first 200 scans' PLAN bitmaps equal the per-pass "
         "searches")
+    return launches, reports
+
+
+# ------------------------------------------------ phase 3b: sharded SSD
+# FlashParams' default SSD (src/repro_torch/flash/params.py): 8 channels of
+# 2 dies, one chip a die.
+SSD_CHANNELS, SSD_DIES = 8, 2
+# The card-against-CPU timeline check runs at a cut size: the CPU's plain
+# versions set its scale.
+SMALL_KEY_PAGES, SMALL_N_OPS = 1024, 2000
+
+
+def timeline_numbers(rep) -> tuple:
+    return (rep.burst_latencies_ns.tolist(), rep.write_latencies_ns.tolist(),
+            rep.sim_makespan_ns, rep.sim_energy_pj)
+
+
+class LaunchLog:
+    """Inside ``with``, logs the calls the sharded backend makes to one of
+    its chip-axis wrappers: the count of each operand shape and the
+    operands of its first call of that shape.  The wrapper itself runs,
+    and counts its launches, as before."""
+
+    def __init__(self, name, shape):
+        self.name, self.shape, self.calls = name, shape, {}
+
+    def __enter__(self):
+        self.fn = fn = getattr(sharded_backend, self.name)
+
+        def logged(*args, **kw):
+            key = self.shape(args, kw)
+            n, first = self.calls.get(key, (0, (args, kw)))
+            self.calls[key] = (n + 1, first)
+            return fn(*args, **kw)
+        setattr(sharded_backend, self.name, logged)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(sharded_backend, self.name, self.fn)
+
+    def most_common(self):
+        """(shape, calls of it, all calls, first operands of it)."""
+        key = max(self.calls, key=lambda k: self.calls[k][0])
+        n, first = self.calls[key]
+        return key, n, sum(c for c, _ in self.calls.values()), first
+
+
+def flush_shape_times(search_log, plan_log) -> None:
+    """Each chip-axis form on the operands of the sharded replay's own most
+    frequent launch shape (the arena rows and queries of its first launch
+    of that shape): bit-exact against the plain version, and timed."""
+    (c, nq, nr), n, total, (args, kw) = search_log.most_common()
+    err = max_abs_err([sim_search_chips(*args, **kw)],
+                      [sim_search_chips_ref(*args, **kw)])
+    ms = device_ms(lambda: sim_search_chips(*args, **kw), 200)
+    plain_ms = device_ms(lambda: sim_search_chips_ref(*args, **kw), 20)
+    work = search_bound(nr, nq, in_place=True)
+    b = bound(c * work[0], c * work[1])
+    log(f"kernel sim_search chip axis [the sharded YCSB-B split replay's "
+        f"flush shape: C={c}, Q={nq} x R={nr} a chip, in place; {n} of its "
+        f"{total} launches]: max abs err {err} vs plain; {ms:.6f} ms/launch, "
+        f"plain {plain_ms:.6f} ms, bound {b[0]:.6f} ms ({b[1]})")
+    (c, ng, npass, nr), n, total, (args, kw) = plan_log.most_common()
+    err = max(err, max_abs_err([sim_plan_chips(*args, **kw)],
+                               [sim_plan_chips_ref(*args, **kw)]))
+    ms = device_ms(lambda: sim_plan_chips(*args, **kw), 200)
+    plain_ms = device_ms(lambda: sim_plan_chips_ref(*args, **kw), 20)
+    works = [plan_bound(args[4][i], nr) for i in range(c)]
+    b = bound(sum(w[0] for w in works), sum(w[1] for w in works))
+    log(f"kernel sim_plan chip axis [the sharded YCSB-E replay's flush "
+        f"shape: C={c}, G={ng}, P={npass}, R={nr} a chip; {n} of its {total} "
+        f"launches]: max abs err {err} vs plain; {ms:.6f} ms/launch, plain "
+        f"{plain_ms:.6f} ms, bound {b[0]:.6f} ms ({b[1]})")
+    if err:
+        raise AssertionError("a chip-axis form differs from its plain "
+                             "version at the sharded replay's flush shape")
+
+
+def sharded_path(kp, n_ops, batched) -> dict:
+    """YCSB-B split and fused and YCSB-E scans on the sharded backend, 8 x 2
+    chips with the flash timeline, at the replays' full size: values and
+    hits equal the oracle and phase 3's batched replays, each flush phase
+    ONE launch (launches by kernel equal the batched replay's), one burst
+    latency a flush, one write latency a program, positive energy.  At the
+    same size, ``RunConfig.event_serial()`` equals the serial sharded
+    fused replay in values and counters, and one open-loop point
+    (read_priority, 8 streams) is printed with its values held to the
+    oracle in the event loop's dispatch order.  At 1,024 key pages and
+    2,000 ops, the timeline on the card equals the same replay with
+    device="cpu", and the open-loop point's simulated latencies equal the
+    scalar backend's.  Returns the launches by kernel summed over the
+    card's runs."""
+    n_chips = SSD_CHANNELS * SSD_DIES
+    geometry = dict(channels=SSD_CHANNELS, dies_per_channel=SSD_DIES,
+                    timeline=True)
+    launches = {k: 0 for k in native.LAUNCHES}
+    reports = {}
+    search_log = LaunchLog("sim_search_chips", lambda a, kw: (
+        *a[2].shape[:2], kw["rows"].shape[1]))
+    plan_log = LaunchLog("sim_plan_chips",
+                         lambda a, kw: (*a[2].shape[:3], a[0].shape[1]))
+    for label, wl, config in ycsb_paths(kp, n_ops)[:3]:
+        with search_log, plan_log:
+            rep, grew, backend, _ = run_replay(f"sharded {label}", wl, kp,
+                                               n_chips, config, TimedSharded,
+                                               **geometry)
+        check_replay(label, wl, rep, grew, config, kp)
+        ref, ref_grew = batched[label]
+        for f in ("read_values", "read_hits", "scan_counts"):
+            if not np.array_equal(getattr(rep, f), getattr(ref, f)):
+                raise AssertionError(f"sharded {label}: {f} differ from "
+                                     "the batched replay's")
+        if grew != ref_grew or rep.flushes != ref.flushes:
+            raise AssertionError(f"sharded {label}: launches {grew} over "
+                                 f"{rep.flushes} flushes, batched {ref_grew} "
+                                 f"over {ref.flushes}")
+        if not (len(rep.burst_latencies_ns) == rep.flushes
+                and len(rep.write_latencies_ns) == rep.programs
+                and (rep.burst_latencies_ns > 0).all()
+                and rep.sim_energy_pj > 0):
+            raise AssertionError(f"sharded {label}: "
+                                 f"{len(rep.burst_latencies_ns)} burst "
+                                 f"latencies for {rep.flushes} flushes, "
+                                 f"{len(rep.write_latencies_ns)} write "
+                                 f"latencies for {rep.programs} programs, "
+                                 f"energy {rep.sim_energy_pj} pJ")
+        lat = rep.burst_latencies_ns
+        log(f"sharded {label} timeline: burst latency p50 "
+            f"{np.percentile(lat, 50):.1f} ns, p99 "
+            f"{np.percentile(lat, 99):.1f} ns over {len(lat)} flushes; "
+            f"makespan {rep.sim_makespan_ns:.1f} ns, energy "
+            f"{rep.sim_energy_pj:.1f} pJ (simulated SSD time, host numpy)")
+        del backend
+        reports[label] = rep, grew
+        for k in launches:
+            launches[k] += grew[k]
+    flush_shape_times(search_log, plan_log)
+    del search_log, plan_log
+
+    # The event frontend at full size: the degenerate event config against
+    # the serial sharded fused replay, then one open-loop point.
+    label, wl, _ = ycsb_paths(kp, n_ops)[1]
+    event, grew, backend, _ = run_replay(
+        f"sharded {label} event_serial", wl, kp, n_chips,
+        RunConfig.event_serial(burst=64, fused=True), TimedSharded,
+        **geometry)
+    del backend
+    serial, serial_grew = reports[label]
+    for f in ("read_values", "read_hits"):
+        if not np.array_equal(getattr(serial, f), getattr(event, f)):
+            raise AssertionError(f"event_serial {f} differ from serial")
+    for f in ("flushes", "kernel_launches", "staged_bytes", "result_bytes",
+              "programs"):
+        if getattr(serial, f) != getattr(event, f):
+            raise AssertionError(f"event_serial {f} {getattr(event, f)} "
+                                 f"against serial {getattr(serial, f)}")
+    if grew != serial_grew:
+        raise AssertionError(f"event_serial launches {grew} against serial "
+                             f"{serial_grew}")
+    for k in launches:
+        launches[k] += grew[k]
+
+    def open_loop(**kw):
+        return RunConfig.open_loop(3e5, concurrency=8,
+                                   scheduler="read_priority", burst=64,
+                                   write_buffer=True, write_high_water=8,
+                                   seed=1, **kw)
+    wl = generate(n_ops, n_key_pages=kp, read_ratio=0.5, alpha=0.9, seed=1)
+    point, grew, backend, _ = run_replay(
+        "sharded open loop", wl, kp, n_chips, open_loop(record_trace=True),
+        TimedSharded, **geometry)
+    del backend
+    for k in launches:
+        launches[k] += grew[k]
+    order = [qi for _, kind, qi in point.trace if kind == "dispatch"]
+    want, _ = oracle(wl, kp, order)
+    reads = wl.ops == 0
+    if sorted(order) != list(range(len(wl.ops))) or not (
+            point.read_hits[reads].all()
+            and np.array_equal(point.read_values[reads], want[reads])):
+        raise AssertionError("open-loop read values differ from the oracle "
+                             "in dispatch order")
+    lat = point.latency
+    log(f"sharded open loop [{kp} key pages, {n_ops} ops, read 0.5, Zipf "
+        f"0.9, Poisson 300,000 ops/s offered, read_priority, 8 streams, "
+        f"write buffer 8]: simulated read p50 {lat.read_p50_ns:.1f} ns, p99 "
+        f"{lat.read_p99_ns:.1f} ns, achieved {lat.qps:.1f} ops/s; "
+        f"{point.counters.dispatches} dispatches, {point.kernel_launches} "
+        "launches; read values equal the oracle in dispatch order")
+
+    # At a cut size: the host-only timeline is the same on the card and on
+    # the CPU, and event timing is the same on the scalar backend.
+    small = ycsb_paths(SMALL_KEY_PAGES, SMALL_N_OPS)
+    small_chips = dict(n_chips=n_chips, device_seed=7, pages_per_chip=-(
+        -2 * SMALL_KEY_PAGES // n_chips) + 1)
+
+    def small_backend(device, **kw):
+        return ShardedSsdBackend(SimChipArray(**small_chips), device=device,
+                                 channels=SSD_CHANNELS,
+                                 dies_per_channel=SSD_DIES, **kw)
+
+    def on_card(fn):
+        native.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        for k in launches:
+            launches[k] += native.LAUNCHES[k]
+        return out
+
+    for label, wl, config in small[:2]:
+        card = on_card(lambda: replay(wl, small_backend(None, timeline=True),
+                                      config))
+        cpu = replay(wl, small_backend("cpu", timeline=True), config)
+        if timeline_numbers(card) != timeline_numbers(cpu) or not \
+                np.array_equal(card.read_values, cpu.read_values):
+            raise AssertionError(f"sharded {label}: the timeline or values "
+                                 "on the card differ from device='cpu'")
+    wl = generate(SMALL_N_OPS, n_key_pages=SMALL_KEY_PAGES, read_ratio=0.5,
+                  alpha=0.9, seed=1)
+    card = on_card(lambda: replay(wl, small_backend(None), open_loop()))
+    host = replay(wl, ScalarBackend(SimChipArray(**small_chips)), open_loop())
+    if not (np.array_equal(card.latency.read_latencies_ns,
+                           host.latency.read_latencies_ns)
+            and np.array_equal(card.read_values, host.read_values)):
+        raise AssertionError("open-loop point on the sharded backend differs "
+                             "from the scalar backend's")
+    log(f"sharded: 8 x 2 chips; values equal the oracle and the batched "
+        f"replays; one launch a flush phase; event_serial equals the serial "
+        f"replay; at {SMALL_KEY_PAGES} key pages the timeline on the card "
+        "equals device='cpu' and the open-loop latencies equal the scalar "
+        "backend's")
     return launches
 
 
@@ -1754,8 +2174,9 @@ def main(argv=None) -> int:
     rows = kernel_checks(dev)
 
     # 3.-6. The main paths.
-    launches = main_path(args.key_pages, args.n_ops)
-    for grew in (index_phase(args.key_pages), quickstart_path(),
+    launches, reports = main_path(args.key_pages, args.n_ops)
+    for grew in (sharded_path(args.key_pages, args.n_ops, reports),
+                 index_phase(args.key_pages), quickstart_path(),
                  serve_path(dev), reduced_serve_path(dev)):
         for k in launches:
             launches[k] += grew[k]

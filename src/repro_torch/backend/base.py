@@ -5,7 +5,7 @@ enqueue commands against a backend and flush, which is what turns a YCSB
 read burst into one device operation instead of a per-page command storm
 (paper §IV-E batch matching).
 
-Two interchangeable implementations ship in the port:
+Three interchangeable implementations ship in the port:
 
   * ``ScalarBackend`` (scalar.py) — the numpy ``SimChip``/``SimChipArray``
     functional model, executing queued commands one page at a time on the
@@ -17,6 +17,11 @@ Two interchangeable implementations ship in the port:
     launch, queued range plans as one ``sim_plan`` launch and queued
     lookups as one fused lookup launch, with the per-page randomization
     stream regenerated in-kernel.
+  * ``ShardedSsdBackend`` (sharded.py) — the same contract over a whole
+    SSD of ``channels x dies_per_channel`` chips with per-chip queues: a
+    flush's searches and plans are each one chip-axis launch, lookups and
+    gathers one row-stacked launch across chips, optionally coupled to the
+    flash timelines (flash/timeline.py) for per-burst latency and energy.
 
 The write path is deferred: ``submit_program`` queues a full-page entry
 image; repeated programs of one page within a burst coalesce last-wins and
@@ -159,6 +164,12 @@ class MatchBackend(abc.ABC):
 
     # ------------------------------------------------------------- storage
     def program_entries(self, page_addr: int, entries, **kw):
+        return self._program_page(page_addr, entries, kw)
+
+    def _program_page(self, page_addr: int, entries, kw):
+        """Program one page on the chip model, eager or deferred.  The
+        sharded backend overrides it to fan a write out to its replicas;
+        the page keeps its logical address."""
         return self.chips.program_entries(page_addr, entries, **kw)
 
     def submit_program(self, page_addr: int, entries, **kw) -> Ticket:
@@ -193,7 +204,7 @@ class MatchBackend(abc.ABC):
         queue, self._program_queue = self._program_queue, {}
         addrs: list[int] = []
         for page_addr, (entries, kw, tickets) in queue.items():
-            built = self.chips.program_entries(page_addr, entries, **kw)
+            built = self._program_page(page_addr, entries, kw)
             self.stats.programs += 1
             for t in tickets:
                 t._resolve(built)
@@ -257,23 +268,17 @@ def as_backend(chips_or_backend) -> MatchBackend:
     return ScalarBackend(chips_or_backend)
 
 
-# Backends of the JAX package that the port has not reached yet, and the
-# slice of the port (ROADMAP.md) that brings each.
-_LATER = {"sharded": "the sharded SSD backend (slice 6 of the port)"}
-
-
 def make_backend(name: str, chips: SimChipArray, **kw) -> MatchBackend:
-    """Factory: ``scalar`` (the host reference) or ``batched`` (single-arena
-    CUDA fast path).  For ``batched``, ``device=None`` runs on the current
-    CUDA device; pass ``device="cpu"`` for the plain PyTorch versions of
-    the kernels."""
+    """Factory: ``scalar`` (the host reference), ``batched`` (single-arena
+    CUDA fast path) or ``sharded`` (channels x dies chips).  For the
+    kernel backends ``device=None`` runs on the current CUDA device; pass
+    ``device="cpu"`` for the plain PyTorch versions of the kernels."""
     from .batched import BatchedKernelBackend
     from .scalar import ScalarBackend
-    backends = {"scalar": ScalarBackend, "batched": BatchedKernelBackend}
-    if name in backends:
-        return backends[name](chips, **kw)
-    if name in _LATER:
-        raise NotImplementedError(f"backend {name!r} is not ported yet: "
-                                  f"{_LATER[name]}")
-    raise ValueError(f"unknown backend {name!r}; pick from "
-                     f"{sorted([*backends, *_LATER])}")
+    from .sharded import ShardedSsdBackend
+    backends = {"scalar": ScalarBackend, "batched": BatchedKernelBackend,
+                "sharded": ShardedSsdBackend}
+    if name not in backends:
+        raise ValueError(f"unknown backend {name!r}; pick from "
+                         f"{sorted(backends)}")
+    return backends[name](chips, **kw)

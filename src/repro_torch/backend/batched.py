@@ -245,6 +245,72 @@ def resolve_gather_responses(chips, gathers, out, parity_snap) -> int:
         pos += k
     return 64 * k_total
 
+# ---------------------------------------------------------------------------
+# Row-stacked launches, shared with the sharded backend: row i of a lookup
+# burst reads key row i and value row i of the arena in place, row i of a
+# gather burst reads its page's row.  Each issues ONE index upload and ONE
+# launch, bumps ``be.stats`` and defers the host tail to the first
+# ``result()`` of the burst.  ``block`` is the backend's padded row block.
+# ---------------------------------------------------------------------------
+
+def launch_lookups(be, lookups, block: int) -> None:
+    """Fused read burst: search + slot select + value gather, 1 launch."""
+    key_addrs = [cmd.page_addr for cmd, _ in lookups]
+    val_addrs = [cmd.value_page for cmd, _ in lookups]
+    k_rows = be.store.rows_for(key_addrs)
+    v_rows = be.store.rows_for(val_addrs)
+
+    n = len(lookups)
+    n_pad = padded_rows(n, block)
+    key_idx, value_idx = be.store.upload_rows(k_rows, v_rows, pad_to=n_pad)
+    q = np.zeros((n_pad, 2), dtype=np.uint32)
+    m = np.full((n_pad, 2), 0xFFFFFFFF, dtype=np.uint32)  # pad rows miss
+    q[:n] = np.asarray([cmd.query for cmd, _ in lookups], np.uint32)
+    m[:n] = np.asarray([cmd.mask for cmd, _ in lookups], np.uint32)
+
+    # Key and value pages are read in place from the one arena.
+    lo, hi, ids, seeds = be.store.arena()
+    bm, val, slots = sim_fused_lookup(
+        lo, hi, lo, hi, words_to_tensor(q, be.device),
+        words_to_tensor(m, be.device), ids, seeds, randomized=True,
+        key_rows=key_idx, value_rows=value_idx)
+
+    be.stats.kernel_launches += 1
+    be.stats.lookups += n
+    be.stats.staged_pages += len(set(key_addrs) | set(val_addrs))
+    be.stats.staged_queries += n
+    snap = snapshot_parities(be.chips, val_addrs)
+
+    def tail(bm=bm, val=val, slots=slots, lookups=lookups, n=n, snap=snap):
+        be.stats.result_bytes += resolve_lookup_responses(
+            be.chips, lookups, tensor_to_words(bm)[:n],
+            tensor_to_words(val)[:n], slots.cpu().numpy()[:n], snap)
+    be._defer_all(lookups, tail)
+
+
+def launch_gathers(be, gathers, block: int) -> None:
+    """Bitmap-selected chunk gather of every queued page, 1 launch."""
+    addrs = [cmd.page_addr for cmd, _ in gathers]
+    rows = be.store.rows_for(addrs)
+    n = len(gathers)
+    n_pad = padded_rows(n, block)
+    row_idx, = be.store.upload_rows(rows, pad_to=n_pad)
+    bm = np.zeros((n_pad, 2), dtype=np.uint32)   # pad rows gather nothing
+    bm[:n] = np.asarray([cmd.chunk_bitmap for cmd, _ in gathers], np.uint32)
+    # The kernel reads the arena's rows in place: no gather copies.
+    lo, hi, _, _ = be.store.arena()
+    out, _counts = sim_gather(lo, hi, words_to_tensor(bm, be.device),
+                              max_out=CHUNKS_PER_PAGE,
+                              rows=row_idx)    # (Npad, 64, 16)
+    be.stats.kernel_launches += 1
+    be.stats.gathers += n
+    snap = snapshot_parities(be.chips, addrs)
+
+    def tail(out=out, gathers=gathers, n=n, snap=snap):
+        be.stats.result_bytes += resolve_gather_responses(
+            be.chips, gathers, tensor_to_words(out)[:n], snap)
+    be._defer_all(gathers, tail)
+
 
 class BatchedKernelBackend(MatchBackend):
     """One launch per flush phase over a device-resident plane arena.
@@ -320,9 +386,9 @@ class BatchedKernelBackend(MatchBackend):
         if plans:
             self._flush_plans(plans)
         if lookups:
-            self._flush_lookups(lookups)
+            launch_lookups(self, lookups, LOOKUP_BLOCK)
         if gathers:
-            self._flush_gathers(gathers)
+            launch_gathers(self, gathers, PAGE_BLOCK)
         # The plane store is the only source of host->device page traffic.
         self.stats.staged_bytes = self.store.staged_bytes
 
@@ -433,63 +499,3 @@ class BatchedKernelBackend(MatchBackend):
                 self.chips, plans, placements, tensor_to_words(out))
         self._defer_all(plans, tail)
 
-    # -------------------------------------------------------------- lookups
-    def _flush_lookups(self, lookups) -> None:
-        """Fused read burst: search + slot select + value gather, 1 launch."""
-        key_addrs = [cmd.page_addr for cmd, _ in lookups]
-        val_addrs = [cmd.value_page for cmd, _ in lookups]
-        k_rows = self.store.rows_for(key_addrs)
-        v_rows = self.store.rows_for(val_addrs)
-
-        n = len(lookups)
-        n_pad = padded_rows(n, LOOKUP_BLOCK)
-        key_idx, value_idx = self.store.upload_rows(k_rows, v_rows,
-                                                    pad_to=n_pad)
-        q = np.zeros((n_pad, 2), dtype=np.uint32)
-        m = np.full((n_pad, 2), 0xFFFFFFFF, dtype=np.uint32)  # pad rows miss
-        q[:n] = np.asarray([cmd.query for cmd, _ in lookups], np.uint32)
-        m[:n] = np.asarray([cmd.mask for cmd, _ in lookups], np.uint32)
-
-        # Key and value pages are read in place from the one arena.
-        lo, hi, ids, seeds = self.store.arena()
-        bm, val, slots = sim_fused_lookup(
-            lo, hi, lo, hi, words_to_tensor(q, self.device),
-            words_to_tensor(m, self.device), ids, seeds, randomized=True,
-            key_rows=key_idx, value_rows=value_idx)
-
-        self.stats.kernel_launches += 1
-        self.stats.lookups += n
-        self.stats.staged_pages += len(set(key_addrs) | set(val_addrs))
-        self.stats.staged_queries += n
-        snap = snapshot_parities(self.chips, val_addrs)
-
-        def tail(bm=bm, val=val, slots=slots, lookups=lookups, n=n,
-                 snap=snap):
-            self.stats.result_bytes += resolve_lookup_responses(
-                self.chips, lookups, tensor_to_words(bm)[:n],
-                tensor_to_words(val)[:n], slots.cpu().numpy()[:n], snap)
-        self._defer_all(lookups, tail)
-
-    # -------------------------------------------------------------- gathers
-    def _flush_gathers(self, gathers) -> None:
-        addrs = [cmd.page_addr for cmd, _ in gathers]
-        rows = self.store.rows_for(addrs)
-        n = len(gathers)
-        n_pad = padded_rows(n, PAGE_BLOCK)
-        row_idx, = self.store.upload_rows(rows, pad_to=n_pad)
-        bm = np.zeros((n_pad, 2), dtype=np.uint32)   # pad rows gather nothing
-        bm[:n] = np.asarray([cmd.chunk_bitmap for cmd, _ in gathers],
-                            np.uint32)
-        # The kernel reads the arena's rows in place: no gather copies.
-        lo, hi, _, _ = self.store.arena()
-        out, _counts = sim_gather(lo, hi, words_to_tensor(bm, self.device),
-                                  max_out=CHUNKS_PER_PAGE,
-                                  rows=row_idx)    # (Npad, 64, 16)
-        self.stats.kernel_launches += 1
-        self.stats.gathers += n
-        snap = snapshot_parities(self.chips, addrs)
-
-        def tail(out=out, gathers=gathers, n=n, snap=snap):
-            self.stats.result_bytes += resolve_gather_responses(
-                self.chips, gathers, tensor_to_words(out)[:n], snap)
-        self._defer_all(gathers, tail)

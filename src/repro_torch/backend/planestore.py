@@ -55,10 +55,12 @@ def padded_rows(n: int, block: int) -> int:
 class PlaneStore:
     """Arena of device-resident page planes, invalidated by the write path."""
 
-    def __init__(self, chips: SimChipArray, *, block: int = 32, device=None):
+    def __init__(self, chips: SimChipArray, *, block: int = 32, device=None,
+                 log_staging: bool = False):
         self.chips = chips
         self.block = block
         self.device = resolve_device(device)
+        self.log_staging = log_staging
         self._row: dict[int, int] = {}      # global page addr -> arena row
         self._addrs: list[int] = []         # arena row -> global page addr
         self._dirty: set[int] = set()
@@ -67,6 +69,8 @@ class PlaneStore:
         self._ids = self._seeds = None      # (cap,) int32
         self.staged_rows = 0                # rows shipped host->device, ever
         self.staged_bytes = 0               # page-plane bytes shipped, ever
+        # Dirty restages since the log was last drained (``log_staging``).
+        self.staged_log: list[int] = []
         # Subscribe through a weakref so an abandoned store (and its device
         # arena) stays collectable — the chip array outlives backends.
         ref = weakref.ref(self)
@@ -109,6 +113,7 @@ class PlaneStore:
         """
         rows = np.empty(len(page_addrs), np.int32)
         stage: list[int] = []
+        dirty_staged: list[int] = []
         queued = set()
         for i, a in enumerate(page_addrs):
             a = int(a)
@@ -124,12 +129,15 @@ class PlaneStore:
                     queued.add(a)
             elif a in self._dirty and a not in queued:
                 stage.append(a)
+                dirty_staged.append(a)
                 queued.add(a)
             rows[i] = r
         if len(self._addrs) > self._cap:
             self._grow(len(self._addrs))
         if stage:
             self._stage(stage)
+            if self.log_staging:
+                self.staged_log.extend(dirty_staged)
         return rows
 
     def stage_group(self, page_addrs) -> int:
@@ -197,13 +205,28 @@ class PlaneStore:
             rows = np.asarray(rows, np.int64)
             if len(rows) > pad_to:          # would be cut, not refused
                 raise ValueError(f"{len(rows)} rows do not fit in {pad_to}")
-            if rows.size and (rows.min() < 0
-                              or rows.max() >= self.resident_rows):
-                raise IndexError(f"arena rows {rows.min()}..{rows.max()} "
-                                 f"outside the {self.resident_rows} resident")
+            self._check_resident(rows)
             r[i, :len(rows)] = rows
         idx = torch.from_numpy(r).to(self.device)
         return tuple(idx[i, :pad_to] for i in range(len(row_sets)))
+
+    def upload_rows2d(self, rows: np.ndarray) -> torch.Tensor:
+        """A (C, R) matrix of arena rows for the chip-axis kernels, which
+        read the rows in place: checked against the resident rows while it
+        is still numpy, as ``upload_rows`` checks, and sent host->device in
+        ONE copy.  The caller pads with row 0.  Returns (C, R) int32."""
+        rows = np.asarray(rows)
+        if rows.ndim != 2:
+            raise ValueError(f"rows must be (C, R), got shape {rows.shape}")
+        self._check_resident(rows)
+        return torch.from_numpy(
+            np.ascontiguousarray(rows, dtype=np.int32)).to(self.device)
+
+    def _check_resident(self, rows: np.ndarray) -> None:
+        """Refuse rows the arena does not hold: the kernels trust them."""
+        if rows.size and (rows.min() < 0 or rows.max() >= self.resident_rows):
+            raise IndexError(f"arena rows {rows.min()}..{rows.max()} "
+                             f"outside the {self.resident_rows} resident")
 
     def take(self, rows: np.ndarray, pad_to: int):
         """Device-side row gather, padded to ``pad_to`` rows (repeats row 0).
@@ -221,8 +244,8 @@ class PlaneStore:
 
     def take2d(self, rows: np.ndarray):
         """Row gather for a (C, R) index matrix, one device op per arena
-        tensor.  Returns (lo (C, R, 512), hi (C, R, 512), ids (C, R),
-        seeds (C, R))."""
+        tensor: the chip-axis plan flush's operands.  Returns (lo (C, R,
+        512), hi (C, R, 512), ids (C, R), seeds (C, R))."""
         rows = np.asarray(rows, np.int64)
         ridx = torch.from_numpy(rows.ravel()).to(self.device)
         lo, hi, ids, seeds = self._select(ridx)

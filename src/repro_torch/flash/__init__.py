@@ -1,2 +1,3 @@
-"""The flash model of the port, host half: hardware parameters and the
-analytic SSD simulator (host side, numpy)."""
+"""The flash model of the port, host side (numpy): hardware parameters, the
+analytic SSD simulator and the burst timeline that couples functional
+backends to it."""

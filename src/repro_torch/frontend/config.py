@@ -1,21 +1,30 @@
 """RunConfig: the one validated knob surface of the workload frontend.
 
 The same frozen dataclass as the JAX package's, field for field, so a
-configuration reads the same in both packages.  The port runs the serial
-replay only:
+configuration reads the same in both packages:
 
-  * **execution mode** — ``mode="serial"``, the synchronous replay (one
-    client, a barrier per burst);
+  * **execution mode** — ``mode="serial"`` is the synchronous replay (one
+    client, a barrier per burst); ``mode="event"`` drives the same
+    functional core through the event-loop simulator
+    (:mod:`repro_torch.frontend.eventloop`) with N concurrent client
+    streams, a bounded NCQ and a scheduler policy;
   * **burst shaping** — ``burst`` (max reads coalesced per backend
     flush), ``fused`` (one fused lookup launch vs split search+gather);
   * **write path** — ``write_buffer``/``write_high_water`` (the §VI DRAM
     coalescing buffer with deferred grouped programs): ``True`` builds a
-    ``WriteBuffer(high_water=write_high_water)``, or pass one.
+    ``WriteBuffer(high_water=write_high_water)``, or pass one;
+  * **event frontend** — ``concurrency`` client streams, ``arrival``
+    process (``zero``/``poisson``/``trace``), ``scheduler`` policy
+    (``fifo``/``read_priority``/``fair_share``), ``ncq_depth`` bound and
+    the per-stream ``seed``.
 
-The knobs of paths not ported yet — ``mode="event"``, the ``reliability``
-tier, device ``faults``, deadlines, hedging and shedding — keep their
-fields, and setting any of them raises ``NotImplementedError`` at
-construction, so a config that constructs is a config that runs.
+The knobs of paths not ported yet — the ``reliability`` tier, device
+``faults``, and the event frontend's robustness tier (deadlines, hedging,
+shedding) — keep their fields, and setting any of them raises
+``NotImplementedError`` at construction, so a config that constructs is a
+config that runs.  Presets: ``eager()``, ``buffered()``, ``open_loop()``
+and ``event_serial()`` (event mode at one stream, zero inter-arrival and
+FIFO, which replays bit-identically to ``mode="serial"``).
 """
 from __future__ import annotations
 
@@ -30,7 +39,6 @@ SCHEDULERS = ("fifo", "read_priority", "fair_share")
 
 # Knob -> (value that leaves it off, the slice of the port that runs it).
 _NOT_PORTED = {
-    "mode": ("serial", "the event-driven frontend (slice 7 of the port)"),
     "reliability": (None, "the reliability tier (slice 7 of the port)"),
     "faults": (None, "the device-fault tier (slice 7 of the port)"),
     "deadline_ns": (None, "deadlines of the event frontend (slice 7)"),
@@ -90,16 +98,38 @@ class RunConfig:
                 raise NotImplementedError(
                     f"{field}={getattr(self, field)!r}: {where} is not "
                     "ported yet")
-        # Event-only knobs left at non-defaults would silently not apply
-        # to the serial replay — refuse instead.
-        for field, default in (("concurrency", 1), ("arrival", "zero"),
-                               ("scheduler", "fifo"),
-                               ("arrival_rate_qps", None),
-                               ("arrival_times_ns", None)):
-            if getattr(self, field) != default:
-                raise ValueError(
-                    f"{field}={getattr(self, field)!r} needs mode='event' "
-                    "(the serial replay has no queue)")
+        if self.arrival == "poisson":
+            if self.mode != "event":
+                raise ValueError("poisson arrivals need mode='event'")
+            if not self.arrival_rate_qps or self.arrival_rate_qps <= 0:
+                raise ValueError("poisson arrivals need "
+                                 f"arrival_rate_qps > 0, got "
+                                 f"{self.arrival_rate_qps!r}")
+        elif self.arrival_rate_qps is not None:
+            raise ValueError(f"arrival_rate_qps only applies to "
+                             f"arrival='poisson', not {self.arrival!r}")
+        if self.arrival == "trace":
+            if self.mode != "event":
+                raise ValueError("trace arrivals need mode='event'")
+            if self.arrival_times_ns is None:
+                raise ValueError("trace arrivals need arrival_times_ns")
+            object.__setattr__(self, "arrival_times_ns",
+                               tuple(float(t) for t in
+                                     self.arrival_times_ns))
+            if any(t < 0 for t in self.arrival_times_ns):
+                raise ValueError("arrival_times_ns must be >= 0")
+        elif self.arrival_times_ns is not None:
+            raise ValueError("arrival_times_ns only applies to "
+                             f"arrival='trace', not {self.arrival!r}")
+        if self.mode == "serial":
+            # Event-only knobs left at non-defaults would silently not
+            # apply to the serial replay — refuse instead.
+            for field, default in (("concurrency", 1), ("arrival", "zero"),
+                                   ("scheduler", "fifo")):
+                if getattr(self, field) != default:
+                    raise ValueError(
+                        f"{field}={getattr(self, field)!r} needs "
+                        "mode='event' (the serial replay has no queue)")
         if not isinstance(self.max_retries, int) or self.max_retries < 0:
             raise ValueError(f"max_retries must be an int >= 0, got "
                              f"{self.max_retries!r}")
@@ -117,6 +147,30 @@ class RunConfig:
         reference every other configuration is held to."""
         return cls(**kw)
 
+    @classmethod
+    def buffered(cls, *, write_high_water: int = 16, **kw) -> "RunConfig":
+        """Serial replay through the §VI DRAM write buffer: hot-page
+        coalescing, grouped deferred programs, overlay reads."""
+        return cls(write_buffer=True, write_high_water=write_high_water,
+                   **kw)
+
+    @classmethod
+    def open_loop(cls, arrival_rate_qps: float, *, concurrency: int = 16,
+                  scheduler: str = "read_priority", **kw) -> "RunConfig":
+        """Open-loop event-driven run: Poisson arrivals at the offered
+        QPS across ``concurrency`` client streams."""
+        return cls(mode="event", arrival="poisson",
+                   arrival_rate_qps=arrival_rate_qps,
+                   concurrency=concurrency, scheduler=scheduler, **kw)
+
+    @classmethod
+    def event_serial(cls, **kw) -> "RunConfig":
+        """The degenerate event config — one stream, zero inter-arrival,
+        FIFO — whose replay must be bit-identical to ``mode='serial'``."""
+        return cls(mode="event", arrival="zero", concurrency=1,
+                   scheduler="fifo", **kw)
+
+    # ------------------------------------------------------------- helper
     def with_(self, **kw) -> "RunConfig":
         """A copy with the given fields replaced (re-validated)."""
         return dataclasses.replace(self, **kw)

@@ -1,14 +1,26 @@
-"""The functional execution core and the serial replay driver.
+"""The functional execution core, shared by the serial and event replays.
 
 :class:`ReplayCore` holds everything stateful about one replay — the host
 value mirror, the pending read burst, the depth-1 lazy drain pipeline and
-the DRAM write buffer — and :func:`replay` iterates the op stream in order:
-reads accumulate to ``burst``; eager writes and scans are barriers, a
-buffered write is not.  Results are bit-identical to the JAX package's
-serial replay on the same workload.
+the DRAM write buffer — and each replay loop owns only the question "when
+does the next op execute":
+
+  * :func:`replay` with ``mode="serial"`` iterates the op stream in order:
+    reads accumulate to ``burst``; eager writes and scans are barriers, a
+    buffered write is not;
+  * :mod:`repro_torch.frontend.eventloop` (``mode="event"``) admits ops
+    through a bounded NCQ and lets a scheduler policy compose the bursts;
+    at one stream, zero inter-arrival and FIFO it degenerates to the
+    serial order and replays bit-identically.
+
+A backend with a flash timeline (the sharded backend's ``timeline=True``)
+measures the replayed op stream: the timeline is reset after the bulk load
+and the report carries its burst and write latencies, makespan and energy.
+Results are bit-identical to the JAX package's replay on the same
+workload.
 
 Not ported yet, and refused by :class:`~repro_torch.frontend.config.RunConfig`:
-the event-driven driver and the reliability and device-fault tiers.
+the reliability and device-fault tiers.
 """
 from __future__ import annotations
 
@@ -25,7 +37,8 @@ from repro_torch.reliability import (DegradedReadError,
 from repro_torch.workload.ycsb import KEYS_PER_PAGE, Workload, value_page_of
 
 from .config import RunConfig
-from .report import CounterReport, ReliabilityReport, RunReport
+from .report import (CounterReport, EnergyReport, LatencyReport,
+                     ReliabilityReport, RunReport)
 
 FULL_MASK = 0xFFFFFFFFFFFFFFFF
 
@@ -62,6 +75,12 @@ class ReplayCore:
             backend.program_entries(
                 value_page_of(p, self.n_key_pages),
                 self.values[s:s + KEYS_PER_PAGE])
+
+        # Timeline-coupled backends (sharded + BurstTimeline) measure the
+        # replayed op stream only — the bulk load is setup, not workload.
+        self.timeline = getattr(backend, "timeline", None)
+        if self.timeline is not None:
+            self.timeline.reset()
 
         wb = config.write_buffer
         if wb is True:
@@ -215,7 +234,7 @@ class ReplayCore:
         p1 = (hi - 2) // KEYS_PER_PAGE     # page of stored key hi - 1
         return list(range(p0, min(p1, self.n_key_pages - 1) + 1))
 
-    def scan(self, qi: int) -> None:
+    def scan(self, qi: int) -> list[int]:
         """YCSB-E scan: ONE Op.PLAN per touched key page, fused in-latch.
 
         Scans key ids [k, k + len); stored key of id k is k + 1, and ids
@@ -224,12 +243,13 @@ class ReplayCore:
         [lo, hi).  Key pages are never reprogrammed, so a scan needs no
         ordering against the write stream — only the open read burst is
         resolved first so the plan flush stays a dedicated launch.
+        Returns the touched pages (the event loop's timing footprint).
         """
         self.resolve_burst()
         wl = self.workload
         pages = self.scan_pages(qi)
         if not pages:
-            return
+            return pages
         k = int(wl.keys[qi])
         lo = k + 1
         hi = min(lo + int(wl.scan_lens[qi]), self.n_keys + 1)
@@ -242,12 +262,12 @@ class ReplayCore:
             self.read_errors[qi] = True
             self.flushes += 1
             self.n_scans += 1
-            return
+            return pages
         except DegradedReadError:
             self.op_errors[qi] = True
             self.flushes += 1
             self.n_scans += 1
-            return
+            return pages
         self.flushes += 1
         total = 0
         for bm in bitmaps:
@@ -255,12 +275,19 @@ class ReplayCore:
             total += int(bits.sum())
         self.scan_counts[qi] = total
         self.n_scans += 1
+        return pages
 
     # ------------------------------------------------------------- writes
-    def write(self, qi: int) -> None:
+    def write(self, qi: int) -> tuple[str, list[int]]:
         """Execute write op ``qi``: an eager per-write program, or — with
         the DRAM buffer — an absorbed write that drains the dirty set as
-        one deferred-program group when it reaches the high-water mark."""
+        one deferred-program group when it reaches the high-water mark.
+
+        Returns the device-side effect for the event loop's timing
+        model: ``("program", [page])`` for an eager program, ``("absorb",
+        [])`` when the buffer swallowed it, or ``("flush", pages)`` when
+        it tripped the high-water mark and the listed pages drained.
+        """
         self.n_writes += 1
         wl = self.workload
         k = int(wl.keys[qi])
@@ -273,33 +300,38 @@ class ReplayCore:
             # queued reads expect it until the grouped flush below.
             self.wb.put(vpage, self.values[s:s + KEYS_PER_PAGE])
             if self.wb.should_flush:
-                self.flush_write_buffer()
-            return
+                return "flush", self.flush_write_buffer()
+            return "absorb", []
         self.resolve_burst()                # read-your-writes ordering
         self.backend.program_entries(
             vpage, self.values[s:s + KEYS_PER_PAGE])
         self.programs += 1
+        return "program", [vpage]
 
-    def flush_write_buffer(self) -> None:
-        """Drain the dirty set as ONE deferred-program group (a no-op when
-        the buffer is clean)."""
+    def flush_write_buffer(self) -> list[int]:
+        """Drain the dirty set as ONE deferred-program group; returns the
+        programmed pages (empty when the buffer was clean)."""
         if self.wb is None or not self.wb.n_dirty:
-            return
+            return []
         self.resolve_burst()        # queued reads precede the programs
+        pages = self.wb.dirty_pages
         self.programs += self.wb.flush(self.backend)
         self.write_flushes += 1
+        return pages
 
     # ------------------------------------------------------------- finish
-    def finish(self) -> None:
-        """End of stream: final burst, final buffer drain, full drain."""
+    def finish(self) -> list[int]:
+        """End of stream: final burst, final buffer drain, full drain.
+        Returns the final program group's pages."""
         self.resolve_burst()
-        self.flush_write_buffer()
+        pages = self.flush_write_buffer()
         self.drain_inflight()
+        return pages
 
     # ------------------------------------------------------------- report
     def report(self, source: str) -> RunReport:
         stats = self.backend.stats
-        return RunReport(
+        rep = RunReport(
             source=source,
             read_values=self.out, read_hits=self.hits,
             scan_counts=self.scan_counts if self.n_scans else None,
@@ -314,6 +346,15 @@ class ReplayCore:
                                   if self.wb is not None else 0)),
             reliability=ReliabilityReport(
                 n_read_errors=int(self.read_errors.sum())))
+        if self.timeline is not None:
+            rep.latency = LatencyReport(
+                burst_latencies_ns=np.asarray(
+                    self.timeline.burst_latencies),
+                write_latencies_ns=np.asarray(
+                    self.timeline.write_latencies),
+                makespan_ns=self.timeline.now)
+            rep.energy = EnergyReport(total_pj=self.timeline.energy_pj)
+        return rep
 
 
 def replay(workload: Workload, backend: MatchBackend,
@@ -331,7 +372,17 @@ def replay(workload: Workload, backend: MatchBackend,
     reads, and drain in grouped deferred-program bursts at the high-water
     mark.  Scans (``ops == 2``) replay as fused Op.PLAN bursts, one flush
     a scan.
+
+    ``config.mode == "event"`` runs the event-loop simulator instead: ops
+    *arrive* (Poisson, trace or all at zero), queue in a bounded NCQ, and
+    a scheduler policy composes the device bursts; the report also
+    carries the per-request simulated latency distribution and admission
+    counters.  At ``RunConfig.event_serial()`` the replay is
+    bit-identical to the serial one.
     """
+    if config.mode == "event":
+        from .eventloop import EventLoop
+        return EventLoop(workload, backend, config).run()
     core = ReplayCore(workload, backend, config)
     wl = workload
     for qi in range(len(wl.ops)):

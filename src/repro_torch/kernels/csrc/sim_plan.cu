@@ -40,6 +40,12 @@
 // on every launch); a longer one runs its exclude passes to zeros.
 // __ballot_sync(inc && !exc) packs one bitmap word per warp (bit i of word
 // w = slot 32w + i).
+//
+// Chip axis.  The sharded backend evaluates C chips' plans in one launch,
+// the counterpart of jax.vmap over the TPU kernel (src/repro/backend/
+// sharded.py, _stacked_plan): chip c has its own N pages, its own G groups
+// of P pass rows and its own (G, N, 16) block of the output.  The grid's z
+// axis is the chip; a single-chip plan is C = 1.
 
 #include "sim_common.cuh"
 
@@ -89,24 +95,23 @@ __global__ void __launch_bounds__(sim::kSlots) plan_kernel(
     const uint32_t* __restrict__ queries, const uint32_t* __restrict__ masks,
     const uint32_t* __restrict__ flags, const uint32_t* __restrict__ page_ids,
     const uint32_t* __restrict__ page_seeds, uint32_t* __restrict__ out,
-    int n_pages, int n_passes, int randomized) {
+    int n_pages, int n_groups, int n_passes, int randomized) {
   __shared__ uint4 s_inc[kPassTile];    // (q_lo, q_hi, m_lo, m_hi)
   __shared__ uint4 s_exc[kPassTile];
   // Include rows | exclude rows << 16, a warp.
   __shared__ __align__(16) uint32_t s_count[kWarps];
-  const int page = blockIdx.x;
-  const int g = blockIdx.y;
+  const size_t page = static_cast<size_t>(blockIdx.z) * n_pages + blockIdx.x;
+  const size_t g = static_cast<size_t>(blockIdx.z) * n_groups + blockIdx.y;
   const int slot = threadIdx.x;
   const int warp = slot >> 5;
   const int lane = slot & 31;
-  const size_t word = static_cast<size_t>(page) * sim::kSlots + slot;
+  const size_t word = page * sim::kSlots + slot;
   uint32_t d_lo = lo[word];
   uint32_t d_hi = hi[word];
   const uint32_t page_id = randomized ? page_ids[page] : 0u;
   const uint32_t seed = randomized ? page_seeds[page] : 0u;
-  const size_t row0 = static_cast<size_t>(g) * n_passes;
-  uint32_t* dst = out + (static_cast<size_t>(g) * n_pages + page) *
-                            sim::kBitmapWords + warp;
+  const size_t row0 = g * n_passes;
+  uint32_t* dst = out + (g * n_pages + blockIdx.x) * sim::kBitmapWords + warp;
 
   // This thread's row of the first tile, requested with the page words.
   uint32_t f = 0u;
@@ -161,24 +166,25 @@ __global__ void __launch_bounds__(sim::kSlots) plan_kernel(
 
 }  // namespace
 
-// lo, hi: (N, 512); queries, masks: (G, P, 2); flags: (G, P);
-// page_ids, page_seeds: (N,); out: (G, N, 16).  All uint32, contiguous, on
-// `device`.  Launches on `stream` and returns cudaGetLastError().
+// lo, hi: (C, N, 512); queries, masks: (C, G, P, 2); flags: (C, G, P);
+// page_ids, page_seeds: (C, N); out: (C, G, N, 16).  All uint32,
+// contiguous, on `device`.  Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int sim_plan_launch(const void* lo, const void* hi,
                                const void* queries, const void* masks,
                                const void* flags, const void* page_ids,
                                const void* page_seeds, void* out, int n_pages,
-                               int n_groups, int n_passes, int randomized,
-                               int device, void* stream) {
+                               int n_groups, int n_passes, int n_chips,
+                               int randomized, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(n_pages, n_groups);
+  const dim3 grid(n_pages, n_groups, n_chips);
   plan_kernel<<<grid, sim::kSlots, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(lo), static_cast<const uint32_t*>(hi),
       static_cast<const uint32_t*>(queries), static_cast<const uint32_t*>(masks),
       static_cast<const uint32_t*>(flags),
       static_cast<const uint32_t*>(page_ids),
       static_cast<const uint32_t*>(page_seeds), static_cast<uint32_t*>(out),
-      n_pages, n_passes, randomized);
+      n_pages, n_groups, n_passes, randomized);
   return static_cast<int>(cudaGetLastError());
 }

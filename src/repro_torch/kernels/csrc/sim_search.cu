@@ -24,9 +24,16 @@
 //   it runs, not when it was queued: every arena write (staging, growth)
 //   and every launch go to the same CUDA stream, so stream order keeps a
 //   launch reading the planes of its flush.
-// * Grid (page, query tile).  A block is one page and up to 64 queries; the
-//   tile halves (64, 32, 16, 8) until the grid has at least one block per
-//   SM, so the burst shape Q = N = 64 runs 256 blocks of 16 queries instead
+// * Chip axis.  The sharded backend searches C chips in one launch, the
+//   counterpart of jax.vmap over the TPU kernel (src/repro/backend/
+//   sharded.py, _stacked_search): chip c has its own (Q, 2) queries and
+//   masks, its own N rows of the arena (`rows` is (C, N)) and its own
+//   (Q, N, 16) block of the output.  The grid's z axis is the chip; nothing
+//   else changes, and a single-chip search is C = 1.  A null `rows` means
+//   rows c * N .. c * N + N - 1 for chip c (pre-gathered planes).
+// * Grid (page, query tile, chip).  A block is one page and up to 64
+//   queries; the tile halves (64, 32, 16, 8) until the grid has at least
+//   one block per SM, so the burst shape Q = N = 64 runs 256 blocks of 16 queries instead
 //   of 64 blocks.  Each block regenerates its page's stream, so the stream
 //   (39 operations a slot) runs Q / tile times: at Q = 64, tile 16, a slot
 //   costs 4 x (39 + 16 x 6) = 540 operations against 39 + 64 x 6 = 423
@@ -64,6 +71,10 @@ __global__ void __launch_bounds__(kThreads) search_kernel(
   __shared__ uint4 tile_qm[sim::kMaxQueryTile];
   __shared__ __align__(16)
       uint32_t tile_bits[sim::kMaxQueryTile][sim::kBitmapWords];
+  const int chip = blockIdx.z;             // this chip's queries and output
+  queries += static_cast<size_t>(chip) * n_queries;
+  masks += static_cast<size_t>(chip) * n_queries;
+  out += static_cast<size_t>(chip) * n_queries * n_pages * sim::kBitmapWords;
   const int page = blockIdx.x;
   const int q0 = blockIdx.y * query_tile;
   const int nq = min(query_tile, n_queries - q0);
@@ -76,8 +87,9 @@ __global__ void __launch_bounds__(kThreads) search_kernel(
     const uint2 m = masks[q0 + i];
     tile_qm[i] = make_uint4(q.x, q.y, m.x, m.y);
   }
-  const size_t row = rows ? static_cast<uint32_t>(rows[page])
-                          : static_cast<uint32_t>(page);
+  const size_t at = static_cast<size_t>(chip) * n_pages + page;
+  const size_t row = rows ? static_cast<uint32_t>(rows[at])
+                          : static_cast<uint32_t>(at);
   uint32_t d_lo[kPerThread], d_hi[kPerThread];
 #pragma unroll
   for (int k = 0; k < kPerThread; ++k) {
@@ -122,19 +134,19 @@ __global__ void __launch_bounds__(kThreads) search_kernel(
 }  // namespace
 
 // lo, hi: (cap, 512) arena planes; page_ids, page_seeds: (cap,);
-// rows: (N,) int32 arena rows, or null for rows 0..N-1; queries, masks:
-// (Q, 2); out: (Q, N, 16).  uint32 unless noted, contiguous, on `device`.
-// Launches on `stream` and returns cudaGetLastError().
+// rows: (C, N) int32 arena rows, or null for rows c * N + i; queries,
+// masks: (C, Q, 2); out: (C, Q, N, 16).  uint32 unless noted, contiguous,
+// on `device`.  Launches on `stream` and returns cudaGetLastError().
 extern "C" int sim_search_launch(const void* lo, const void* hi,
                                  const void* queries, const void* masks,
                                  const void* page_ids, const void* page_seeds,
                                  const void* rows, void* out, int n_pages,
-                                 int n_queries, int randomized, int device,
-                                 void* stream) {
+                                 int n_queries, int n_chips, int randomized,
+                                 int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tile = sim::query_tile(n_pages, n_queries, device);
-  const dim3 grid(n_pages, (n_queries + tile - 1) / tile);
+  const int tile = sim::query_tile(n_pages * n_chips, n_queries, device);
+  const dim3 grid(n_pages, (n_queries + tile - 1) / tile, n_chips);
   search_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(lo), static_cast<const uint32_t*>(hi),
       static_cast<const uint2*>(queries), static_cast<const uint2*>(masks),

@@ -39,12 +39,12 @@ _I = ctypes.c_int
 # C entry point -> argument types (pointers, ints, then device and stream).
 SIGNATURES = {
     "sim_search_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _P),
+                          _I, _P),
     "sim_gather_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "sim_lookup_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _P),
     "sim_plan_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                        _P),
+                        _I, _P),
     "sim_fused_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _I, _P),
     "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

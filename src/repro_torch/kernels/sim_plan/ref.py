@@ -59,3 +59,18 @@ def sim_plan_ref(lo, hi, queries, masks, flags, page_ids, page_seeds, *,
     inc = (hit & (f == PASS_INCLUDE)[..., None, None]).any(dim=1)
     exc = (hit & (f == PASS_EXCLUDE)[..., None, None]).any(dim=1)
     return pack_bits(inc & ~exc)                       # (G, N, 16)
+
+
+def sim_plan_chips_ref(lo, hi, queries, masks, flags, page_ids, page_seeds,
+                       *, randomized: bool) -> torch.Tensor:
+    """The chip-axis plan: chip c's groups against chip c's pages, for each
+    of the C chips.
+
+    lo, hi: (C, N, 512) int32;  queries, masks: (C, G, P, 2) int32;
+    flags: (C, G, P) int32;  page_ids, page_seeds: (C, N) int32.  Returns
+    (C, G, N, 16) int32 combined bitmaps.
+    """
+    return torch.stack([
+        sim_plan_ref(*chip, randomized=randomized)
+        for chip in zip(lo, hi, queries, masks, flags, page_ids,
+                        page_seeds)])

@@ -13,7 +13,9 @@ from repro_torch.core.bits import u64_array_to_pairs
 from repro_torch.device import resolve_device
 from repro_torch.kernels import native
 from repro_torch.kernels.layout import pages_to_planes, words_to_tensor
-from .ref import U32, sim_search_ref, to_i32
+from .ref import U32, sim_search_chips_ref, sim_search_ref, to_i32
+
+MAX_CHIPS = 65_535           # the kernel's grid puts the chips on its z axis
 
 
 def sim_search(lo, hi, queries, masks, page_ids, page_seeds, *,
@@ -35,23 +37,58 @@ def sim_search(lo, hi, queries, masks, page_ids, page_seeds, *,
     if lo.device.type == "cpu":
         return sim_search_ref(lo, hi, queries, masks, page_ids, page_seeds,
                               randomized=randomized, rows=rows)
+    n = lo.shape[0] if rows is None else rows.shape[0]
+    return _launch(lo, hi, queries[None], masks[None], page_ids, page_seeds,
+                   None if rows is None else rows[None], n, randomized)[0]
+
+
+def sim_search_chips(lo, hi, queries, masks, page_ids, page_seeds, *,
+                     randomized: bool, rows) -> torch.Tensor:
+    """The chip-axis search: C chips in ONE launch -> (C, Q, N, 16) bitmaps.
+
+    lo, hi, page_ids, page_seeds: the arena, as ``sim_search`` takes it
+    queries, masks: (C, Q, 2) int32, chip c's own query rows
+    rows:           (C, N) int32 arena rows of chip c's pages, read in place
+
+    The counterpart of ``jax.vmap`` of the search kernel over the chip
+    axis (the JAX package's sharded backend, ``_stacked_search``): chip
+    c's queries match only chip c's rows.
+    """
+    if lo.device.type == "cpu":
+        return sim_search_chips_ref(lo, hi, queries, masks, page_ids,
+                                    page_seeds, randomized=randomized,
+                                    rows=rows)
+    return _launch(lo, hi, queries, masks, page_ids, page_seeds, rows,
+                   rows.shape[1], randomized)
+
+
+def _launch(lo, hi, queries, masks, page_ids, page_seeds, rows, n,
+            randomized) -> torch.Tensor:
+    """One launch over C chips: (C, Q, 2) queries and masks, (C, N) rows
+    or None (rows c * N + i of the planes) -> (C, Q, N, 16)."""
     if lo.device.type != "cuda":
         raise ValueError(f"sim_search: no implementation on {lo.device}")
     device = lo.device
-    cap, q = lo.shape[0], queries.shape[0]
-    n = cap if rows is None else rows.shape[0]
+    cap = lo.shape[0]
+    c, q = queries.shape[0], queries.shape[1]
     operands = [("lo", lo, (cap, 512)), ("hi", hi, (cap, 512)),
-                ("queries", queries, (q, 2)), ("masks", masks, (q, 2)),
+                ("queries", queries, (c, q, 2)), ("masks", masks, (c, q, 2)),
                 ("page_ids", page_ids, (cap,)),
                 ("page_seeds", page_seeds, (cap,))]
     if rows is not None:
-        operands.append(("rows", rows, (n,)))
+        operands.append(("rows", rows, (c, n)))
+    elif c * n != cap:
+        raise ValueError(f"sim_search: {c} chips of {n} rows need {c * n} "
+                         f"rows of planes, got {cap}")
     for name, t, shape in operands:
         native.check_operand(name, t, shape, device)
-    out = torch.empty((q, n, 16), dtype=torch.int32, device=device)
-    if n and q:
+    if c > MAX_CHIPS:
+        raise ValueError(f"{c} chips: the kernel's grid takes at most "
+                         f"{MAX_CHIPS}")
+    out = torch.empty((c, q, n, 16), dtype=torch.int32, device=device)
+    if c and n and q:
         native.launch("sim_search_launch", lo, hi, queries, masks, page_ids,
-                      page_seeds, rows, out, n, q, int(randomized),
+                      page_seeds, rows, out, n, q, c, int(randomized),
                       device=device)
         native.LAUNCHES["sim_search"] += 1
     return out

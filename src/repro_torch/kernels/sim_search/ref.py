@@ -81,3 +81,18 @@ def sim_search_ref(lo, hi, queries, masks, page_ids, page_seeds, *,
     mm = ((d_lo[None] ^ q[:, 0, None, None]) & m[:, 0, None, None]) | (
         (d_hi[None] ^ q[:, 1, None, None]) & m[:, 1, None, None])
     return pack_bits(mm == 0)                          # (Q, N, 16)
+
+
+def sim_search_chips_ref(lo, hi, queries, masks, page_ids, page_seeds, *,
+                         randomized: bool, rows) -> torch.Tensor:
+    """The chip-axis search: chip c's (Q, 2) queries and masks against the
+    arena rows ``rows[c]``, for each of the C chips.
+
+    lo, hi: (cap, 512) int32 planes; page_ids, page_seeds: (cap,) int32;
+    queries, masks: (C, Q, 2) int32; rows: (C, N) int32.  Returns
+    (C, Q, N, 16) int32 bitmaps.
+    """
+    return torch.stack([
+        sim_search_ref(lo, hi, q, m, page_ids, page_seeds,
+                       randomized=randomized, rows=r)
+        for q, m, r in zip(queries, masks, rows)])

@@ -413,8 +413,14 @@ def test_plan_path_queues_and_resolves():
 
 @pytest.mark.parametrize("name", ["sharded"])
 def test_unported_backends_raise_not_implemented(name):
-    with pytest.raises(NotImplementedError, match="slice"):
-        make_backend(name, SimChipArray(2, 4), device="cpu")
+    """The sharded backend is ported (slice 6) and builds from the factory;
+    what it still lacks, the device-fault tier, raises naming slice 7."""
+    be = make_backend(name, SimChipArray(2, 4), device="cpu")
+    be.program_entries(1, np.arange(10, 20, dtype=np.uint64))
+    assert be.search(Command.search(1, 12)).match_count == 1
+    assert be.stats.kernel_launches == 1
+    with pytest.raises(NotImplementedError, match="slice 7"):
+        be.enable_device_faults(object())
 
 
 def test_unported_paths_raise_not_implemented():

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from repro_torch import database_index
-from repro_torch.backend import make_backend
+from repro_torch.backend import ShardedSsdBackend, make_backend
 from repro_torch.core.bitweaving import Column, RowCodec
 from repro_torch.core.commands import Command
 from repro_torch.core.engine import SimChipArray
@@ -34,12 +34,14 @@ from repro_torch.kernels.sim_fused.ops import sim_fused, sim_fused_lookup
 from repro_torch.kernels.sim_fused.ref import sim_fused_ref, sim_lookup_ref
 from repro_torch.kernels.sim_gather.ops import sim_gather
 from repro_torch.kernels.sim_gather.ref import sim_gather_ref
-from repro_torch.kernels.sim_plan.ops import sim_plan
+from repro_torch.kernels.sim_plan.ops import sim_plan, sim_plan_chips
 from repro_torch.kernels.sim_plan.ref import (PASS_EXCLUDE, PASS_INCLUDE,
                                               PASS_PAD, plan_pass_rows,
+                                              sim_plan_chips_ref,
                                               sim_plan_ref)
-from repro_torch.kernels.sim_search.ops import sim_search
-from repro_torch.kernels.sim_search.ref import sim_search_ref, stream_planes
+from repro_torch.kernels.sim_search.ops import sim_search, sim_search_chips
+from repro_torch.kernels.sim_search.ref import (sim_search_chips_ref,
+                                                sim_search_ref, stream_planes)
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.launch.serve import requests, serve
@@ -818,3 +820,214 @@ def test_database_index_on_card_matches_cpu():
     assert grew == {"sim_lookup": 1, "sim_plan": 1,
                     "sim_search": card["splits"] + 1,
                     "sim_gather": 1 + card["splits"] + 1}
+
+
+# ------------------------------------------- chip-axis forms, sharded SSD
+
+def _chip_axis_rows(rng, n_chips, n_rows, cap):
+    """(C, R) arena rows: distinct random rows, chip 1 repeating a row of
+    chip 0, every chip's last four rows pad rows (row 0), and with C > 1
+    the last chip a pad chip (all row 0), as the sharded backend pads."""
+    rows = rng.choice(np.arange(1, cap), n_chips * n_rows, replace=False)
+    rows = rows.reshape(n_chips, n_rows).astype(np.int32)
+    rows[:, -4:] = 0
+    if n_chips > 1:
+        rows[1, 0] = rows[0, 1]
+        rows[-1] = 0
+    return rows
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_chips", [1, 3, 16])
+def test_sim_search_chips_in_place_matches_plain(n_chips):
+    """The chip-axis search at the smoke's shapes (Q = 64 and R = 64 a
+    chip, in place): one launch, equal to the plain version; chip c's
+    first query hits a planted slot of its first row, a 4-bit mask hits
+    many, the last query (q = 0, m = 0) every slot."""
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(n_chips)
+    n_q, n_r = 64, 64
+    cap = n_chips * n_r + 64
+    lo, hi = _u32(rng, (cap, 512)), _u32(rng, (cap, 512))
+    ids = rng.integers(0, 4096, cap).astype(np.uint32)
+    seeds = _u32(rng, (cap,))
+    rows = _chip_axis_rows(rng, n_chips, n_r, cap)
+    s_lo, s_hi = _stream(ids, seeds)
+    q, m = _u32(rng, (n_chips, n_q, 2)), np.full((n_chips, n_q, 2),
+                                                 0xFFFFFFFF, np.uint32)
+    for c in range(n_chips):
+        r = int(rows[c, 0])
+        q[c, 0] = [lo[r, 77] ^ s_lo[r, 77], hi[r, 77] ^ s_hi[r, 77]]
+    m[:, 1] = [0xF, 0]
+    q[:, -1] = m[:, -1] = 0
+    args = [words_to_tensor(a, dev) for a in (lo, hi, q, m, ids, seeds)]
+    idx = torch.from_numpy(rows).to(dev)
+    before = native.LAUNCHES["sim_search"]
+    got = sim_search_chips(*args, randomized=True, rows=idx)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["sim_search"] == before + 1
+    plain = sim_search_chips_ref(*args, randomized=True, rows=idx)
+    assert got.shape == (n_chips, n_q, n_r, 16)
+    for c in range(n_chips):
+        assert (int(plain[c, 0, 0, 77 // 32]) >> (77 % 32)) & 1
+        # Chip c of the chip axis is the single-chip search of its rows.
+        _check_equal([plain[c]], [sim_search_ref(
+            *args[:2], args[2][c], args[3][c], *args[4:], randomized=True,
+            rows=idx[c])])
+    assert (plain[:, -1] == -1).all()
+    _check_equal([got], [plain])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_chips", [1, 3, 16])
+def test_sim_plan_chips_matches_plain(n_chips):
+    """The chip-axis plan at the smoke's shapes (G = 2, P = 16, R = 32 a
+    chip): one launch, equal to the plain version.  Passes match on 16-bit
+    prefixes of stored words, so includes and excludes both hit; odd
+    chips' second group is all PAD and matches nothing."""
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(40 + n_chips)
+    n_g, n_p, n_r = 2, 16, 32
+    lo, hi = (_u32(rng, (n_chips, n_r, 512)) for _ in range(2))
+    ids = rng.integers(0, 4096, (n_chips, n_r)).astype(np.uint32)
+    seeds = _u32(rng, (n_chips, n_r))
+    q = np.zeros((n_chips, n_g, n_p, 2), np.uint32)
+    m, f = np.zeros_like(q), np.zeros((n_chips, n_g, n_p), np.uint32)
+    for c in range(n_chips):
+        s_lo, s_hi = _stream(ids[c], seeds[c])
+        for g in range(n_g if c % 2 == 0 else 1):
+            for p in range(12):
+                r, s = int(rng.integers(n_r)), int(rng.integers(512))
+                q[c, g, p] = [lo[c, r, s] ^ s_lo[r, s], hi[c, r, s]
+                              ^ s_hi[r, s]]
+                m[c, g, p] = [0, 0xFFFF0000]
+                f[c, g, p] = PASS_EXCLUDE if p % 4 == 3 else PASS_INCLUDE
+    args = [words_to_tensor(a, dev) for a in (lo, hi, q, m, f, ids, seeds)]
+    before = native.LAUNCHES["sim_plan"]
+    got = sim_plan_chips(*args, randomized=True)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["sim_plan"] == before + 1
+    plain = sim_plan_chips_ref(*args, randomized=True)
+    assert got.shape == (n_chips, n_g, n_r, 16)
+    assert (plain[:, 0] != 0).any() and not (plain[1::2, 1] != 0).any()
+    for c in range(n_chips):
+        _check_equal([plain[c]], [sim_plan_ref(
+            *(a[c] for a in args), randomized=True)])
+    _check_equal([got], [plain])
+
+
+def _sharded_burst(keys, n_pages):
+    """Searches, plans, lookups across chips and gathers: every phase."""
+    rng = np.random.default_rng(9)
+    half = n_pages // 2
+    cmds = [Command.search(p, int(keys[p][rng.integers(len(keys[p]))]))
+            for p in range(n_pages)]
+    cmds += [Command.search(3, 0, 0), Command.search(5, 12345)]
+    cmds += [Command.lookup(p, p + half, int(keys[p][-1 - p]))
+             for p in range(half)]
+    cmds.append(Command.lookup(0, half, 2**63 + 5))
+    lo = int(np.sort(keys[2])[10])
+    cmds += [Command.plan(p, exact_range(lo, lo + 2**50).include,
+                          exact_range(lo + 1, lo + 2).include)
+             for p in (2, 6, 7)]
+    cmds += [Command.gather(p, int(rng.integers(0, 2**64, dtype=np.uint64)))
+             for p in range(n_pages)]
+    return cmds
+
+
+def _same_response(a, b):
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if dataclasses.is_dataclass(x):
+            _same_response(x, y)
+        elif isinstance(x, np.ndarray):
+            np.testing.assert_array_equal(x, y)
+        else:
+            assert x == y, f.name
+
+
+@pytest.mark.gpu
+def test_sharded_flush_on_card_matches_cpu():
+    """A 4 x 4 sharded flush of every phase on the card equals the same
+    flush with device="cpu" response by response and in its counters,
+    with exactly one launch a phase."""
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(3)
+    keys = [rng.integers(1, 2**62, 300, dtype=np.uint64) for _ in range(32)]
+    results, stats = {}, {}
+    for device in (dev, "cpu"):
+        be = ShardedSsdBackend.from_geometry(
+            channels=4, dies_per_channel=4, pages_per_chip=4, device_seed=5,
+            timeline=True, device=device)
+        for p, k in enumerate(keys):
+            be.program_entries(p, k)
+        tickets = [getattr(be, f"submit_{c.op.value}")(c)
+                   for c in _sharded_burst(keys, 32)]
+        before = dict(native.LAUNCHES)
+        be.flush()
+        torch.cuda.synchronize()
+        grew = {k: native.LAUNCHES[k] - before[k] for k in before}
+        if device == dev:
+            assert grew == {"sim_search": 1, "sim_plan": 1, "sim_lookup": 1,
+                            "sim_gather": 1, "sim_fused": 0,
+                            "flash_attention": 0}
+        results[device] = [t.result() for t in tickets]
+        stats[device] = (dataclasses.asdict(be.stats),
+                         be.timeline.burst_latencies, be.timeline.energy_pj)
+    assert stats[dev] == stats["cpu"] and stats[dev][0]["kernel_launches"] == 4
+    for a, b in zip(results[dev], results["cpu"]):
+        _same_response(a, b)
+
+
+@pytest.mark.gpu
+def test_sharded_replay_on_card_matches_cpu():
+    """YCSB split and fused on 8 x 2 chips with the timeline: values,
+    counters and the simulated latencies and energy equal the CPU run."""
+    dev = _cuda_or_skip()
+    wl = generate(400, n_key_pages=16, read_ratio=0.9, alpha=0.9, seed=5,
+                  scan_ratio=0.05)
+    for fused in (False, True):
+        reps = [replay(wl, ShardedSsdBackend.from_geometry(
+            channels=8, dies_per_channel=2, pages_per_chip=4, device_seed=2,
+            timeline=True, device=device), RunConfig(burst=32, fused=fused))
+            for device in (dev, "cpu")]
+        card, cpu = reps
+        for f in ("read_values", "read_hits", "scan_counts",
+                  "burst_latencies_ns", "write_latencies_ns"):
+            np.testing.assert_array_equal(getattr(card, f), getattr(cpu, f))
+        for f in ("kernel_launches", "flushes", "staged_bytes",
+                  "result_bytes", "sim_makespan_ns", "sim_energy_pj"):
+            assert getattr(card, f) == getattr(cpu, f), f
+        assert card.read_hits[wl.ops == 0].all()
+
+
+@pytest.mark.gpu
+def test_chip_axis_search_reprogram_between_flush_and_drain_on_card():
+    """The chip-axis search reads the arena in place: a burst flushed
+    before its page is reprogrammed, restaged and the arena grown resolves
+    against the planes of its flush, as on the CPU."""
+    dev = _cuda_or_skip()
+    old = np.arange(1, 301, dtype=np.uint64) * 7
+    new = np.arange(1, 301, dtype=np.uint64) * 11
+    results = {}
+    for device in (dev, "cpu"):
+        be = ShardedSsdBackend.from_geometry(
+            channels=4, dies_per_channel=4, pages_per_chip=4, device_seed=4,
+            device=device)
+        for p in range(48):
+            be.program_entries(p, old + p)
+        first = [be.submit_search(Command.search(p, int(old[9] + p)))
+                 for p in (1, 2, 17)]
+        be.flush()
+        be.program_entries(1, new + 1)
+        be.program_entries(17, new + 17)
+        second = [be.submit_search(Command.search(p, int(old[9] + p)))
+                  for p in (1, 17)]
+        second += [be.submit_search(Command.search(p, 1)) for p in range(48)]
+        be.flush()                             # restages rows; grows
+        assert be.store.resident_rows == 48
+        results[device] = [t.result() for t in first + second]
+    card, cpu = results[dev], results["cpu"]
+    assert [r.match_count for r in card[:5]] == [1, 1, 1, 0, 0]
+    for a, b in zip(card, cpu):
+        np.testing.assert_array_equal(a.bitmap_words, b.bitmap_words)

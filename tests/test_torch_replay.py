@@ -75,6 +75,12 @@ def test_split_and_fused_agree_with_serial_oracle(workload):
                                   dict(hedge_quantile=0.9),
                                   dict(shed_capacity=4)])
 def test_unported_knobs_refused_at_construction(knob):
+    if knob == dict(mode="event"):
+        # The event frontend is ported: the knob constructs and replays.
+        wl = generate(40, n_key_pages=2, read_ratio=0.8, alpha=0.5, seed=3)
+        rep = replay(wl, SimChipArray(2, 4), RunConfig(**knob))
+        assert rep.source == "event" and rep.read_hits[wl.ops == 0].all()
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         RunConfig(**knob)
 
