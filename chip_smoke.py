@@ -40,6 +40,31 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    Then, at 1,024 key pages and 2,000 ops, the timeline on the card
    against the same replay on the CPU, and the open-loop point's simulated
    latencies against the scalar backend's.
+   Then bit faults (§IV-C, phase 3c): the JAX BER sweep's own
+   configuration (``benchmarks/reliability_sweep.py``: 240 ops, 12 key
+   pages, 4 chips, ages 0/45/90 verified with vote_k 3, then sense noise
+   unverified at vote_k 1 and 3) on ScalarBackend and on the batched and
+   sharded backends on the card, every counter equal to the committed
+   ``BENCH_reliability_sweep.baseline.json`` and the card's stats equal to
+   device="cpu"; at full size a fused YCSB read-only replay at age 90
+   under ``RunConfig.reliable`` (every read the oracle value or a typed
+   ``UncorrectableReadError``, the first 8 bursts equal ScalarBackend
+   response by response), the same replay on the sharded backend equal op
+   by op, and the raw kernel checks at age 45 (a split replay of 5,000
+   ops under the tier without verification or noise, every bitmap and
+   chunk equal to the chip model's read of the damaged or open-repaired
+   page; a fused YCSB-E replay of 5,000 ops without the tier, every
+   lookup's bitmap, slot, value and parity flag and every plan's bitmap
+   equal to the chip model's over the damaged pages).
+   Then device faults (phase 3d): the JAX chaos sweep's own configuration
+   (``benchmarks/chaos_sweep.py``: four fault schedules and the overload
+   run on replicas 2; every counter and read p99 equal to
+   ``BENCH_chaos_sweep.baseline.json``), and the dying-die and dead-chip
+   schedules under ``RunConfig.chaos`` on 8 x 2 chips with replicas 2 at
+   4,096 key pages (values and scan counts equal the oracle in dispatch
+   order, failovers above 0 and each served by a launch over replica
+   rows, reads that follow a bad-block remap served by the kernels from
+   spare rows).
 4. The §V indexes on the ``batched`` backend, each path against a numpy
    oracle, with the first bursts of each kind also run on
    ``ScalarBackend`` over a copy of the stored pages and held equal
@@ -67,13 +92,14 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
 8. The card's ``nvidia-smi`` name and power limit, then the last line:
    ``{"ok": true, "device": {...}}``.
 
-The launch counts are set to 0 just before each path of phases 3–6 and
-read just after it; they show which kernels ran on that path.  The replay
-scale is 20% of the paper's 650 MiB index: 16,384 key pages and 16,384
-value pages of 4 KiB on 16 chips, for every replay path, the sharded ones
-included; the B+Tree has as many leaves.  ``--key-pages`` and ``--n-ops``
-cut them for a quick check (the hash index takes two inserts a key page,
-the secondary index 64 rows a key page).
+The launch counts are set to 0 just before each path of phases 3–6 and read
+just after it; they show which kernels ran on that path. The replay scale
+is 20% of the paper's 650 MiB index: 16,384 key pages and 16,384 value
+pages of 4 KiB on 16 chips, for every replay path, the sharded and reliable
+ones included (the chaos replays hold 4,096 key pages: replicas triple the
+host page programs); the B+Tree has as many leaves. ``--key-pages`` and
+``--n-ops`` cut them for a quick check (the hash index takes two inserts a
+key page, the secondary index 64 rows a key page).
 """
 from __future__ import annotations
 
@@ -93,7 +119,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import database_index, quickstart  # noqa: E402
 from repro_torch.backend import (BatchedKernelBackend,  # noqa: E402
-                                 ScalarBackend, ShardedSsdBackend)
+                                 ScalarBackend, ShardedSsdBackend,
+                                 make_backend)
 from repro_torch.backend import sharded as sharded_backend  # noqa: E402
 from repro_torch.backend.batched import PAGE_BLOCK  # noqa: E402
 from repro_torch.backend.planestore import next_pow2, padded_rows  # noqa: E402
@@ -101,7 +128,10 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import (chip_array_from_numpy,  # noqa: E402
                                  chip_array_to_numpy)
 from repro_torch.core.bitweaving import Column, RowCodec  # noqa: E402
-from repro_torch.core.commands import Command  # noqa: E402
+from repro_torch.core.bits import (SLOTS_PER_CHUNK,  # noqa: E402
+                                   SLOTS_PER_PAGE, unpack_bitmap)
+from repro_torch.core.commands import Command, Op  # noqa: E402
+from repro_torch.core.ecc import crc32_rows  # noqa: E402
 from repro_torch.core.engine import SimChipArray  # noqa: E402
 from repro_torch.core.page import mask_header_slots  # noqa: E402
 from repro_torch.core.range_query import (RangePlan,  # noqa: E402
@@ -139,6 +169,11 @@ from repro_torch.kernels.timing import (ARENA_ROWS,  # noqa: E402
                                         device_ms, planted_lookup_queries,
                                         random_arena, row_sets)
 from repro_torch.launch.serve import requests, serve  # noqa: E402
+from repro_torch.reliability import (DegradedReadError,  # noqa: E402
+                                     FaultModel, FaultSchedule,
+                                     ReliabilityPolicy, ReliabilityState,
+                                     UncorrectableReadError, match_bitmap,
+                                     plan_bitmap)
 from repro_torch.models.model import prefill  # noqa: E402
 from repro_torch.serve.batching import Request, ServeEngine  # noqa: E402
 from repro_torch.serve.kvcache import PagedStats, SimPagedKVCache  # noqa: E402
@@ -1517,6 +1552,669 @@ def sharded_path(kp, n_ops, batched) -> dict:
     return launches
 
 
+# ------------------------------------------- phase 3c: bit faults (§IV-C)
+BENCH_DIR = Path(__file__).resolve().parent / "benchmarks"
+# benchmarks/reliability_sweep.py's configuration (the JAX package's BER
+# sweep): 240 read-only ops over 12 key pages on 4 chips, device seed 3.
+SWEEP_OPS, SWEEP_KEY_PAGES, SWEEP_CHIPS = 240, 12, 4
+SWEEP_AGES = (0, 45, 90)
+VERIFIED = dict(verify_hits=True, fallback_on_miss=True, vote_k=3)
+# The full-size replays: age 90 (refresh marks, ECC fallbacks and
+# uncorrectable pages all occur) verified; the raw check at age 45
+# unverified and noise-free, so a response's bitmap is the kernel's own.
+FULL_AGE, RAW_AGE = 90.0, 45.0
+N_MIRRORED = 8
+# Ops of the raw check's split replay (host checks every response).
+RAW_OPS = 5000
+
+
+def baseline(name) -> dict:
+    """A committed JAX benchmark baseline, read as data."""
+    data = json.loads((BENCH_DIR / f"BENCH_{name}.baseline.json")
+                      .read_text())
+    return {m["name"]: m["value"] for m in data["metrics"]}
+
+
+def outcome(ticket):
+    """A ticket's response, or its typed error as (name, page)."""
+    try:
+        return ticket.result()
+    except (UncorrectableReadError, DegradedReadError) as e:
+        return (type(e).__name__, e.page_addr)
+
+
+def same_outcome(a, b, cmd, where) -> None:
+    """Equal responses, or equal typed errors.  One difference is allowed,
+    as in the JAX package: when both pages of a lookup are uncorrectable,
+    ScalarBackend names the key page and the kernel backends' finalize the
+    value page, so the errors of a lookup may name its two pages."""
+    if isinstance(a, tuple) or isinstance(b, tuple):
+        both_pages = (cmd.op is Op.LOOKUP and isinstance(a, tuple)
+                      and isinstance(b, tuple) and a[0] == b[0]
+                      and {a[1], b[1]} == {cmd.page_addr, cmd.value_page})
+        if a != b and not both_pages:
+            raise AssertionError(f"{where}: {a!r} against the scalar "
+                                 f"reference's {b!r}")
+    else:
+        same_response(a, b, where)
+
+
+def on_card(fn):
+    """Run one path with the launch counts set to 0 just before it; returns
+    its result, launches by kernel and wall seconds."""
+    torch.cuda.synchronize()
+    native.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(native.LAUNCHES), time.perf_counter() - t0
+
+
+def add_launches(total, grew) -> None:
+    for k in total:
+        total[k] += grew[k]
+
+
+def sweep_replay(name, device, wl, policy, fault):
+    arr = SimChipArray(n_chips=SWEEP_CHIPS, pages_per_chip=max(
+        wl.n_index_pages // SWEEP_CHIPS + 1, 8), device_seed=3)
+    kw = {} if name == "scalar" else {"device": device}
+    rel = ReliabilityState(policy, fault)
+    rep = replay(wl, make_backend(name, arr, **kw),
+                 RunConfig.reliable(rel, burst=64, fused=True))
+    return rep, rel
+
+
+def reliability_sweep_path() -> dict:
+    """The JAX BER sweep's own configuration: the verified half at ages
+    0/45/90 (base BER 1e-4, sense BER 2e-4, vote_k 3, fault seed 11) on
+    ScalarBackend and on the batched and sharded backends on the card, the
+    unverified half (sense BER 5e-4, vote_k 1 and 3) likewise.  Every
+    ``reliability_*`` counter (ScalarBackend's, as the sweep emits them)
+    equals the committed baseline; every op on the card is the oracle
+    value or a typed error and equals the scalar run's; the card's
+    ``ReliabilityStats`` and counters equal the same backend's with
+    device="cpu"."""
+    base = baseline("reliability_sweep")
+    wl = generate(SWEEP_OPS, n_key_pages=SWEEP_KEY_PAGES, read_ratio=1.0,
+                  alpha=0.9, seed=7)
+    want, _ = oracle(wl, SWEEP_KEY_PAGES)
+    launches = {k: 0 for k in native.LAUNCHES}
+    got = {}
+    wrong = mismatch = 0
+    halves = [(f"age {age}", ReliabilityPolicy(**VERIFIED),
+               FaultModel(seed=11, base_ber=1e-4, retention_days=float(age),
+                          sense_ber=2e-4)) for age in SWEEP_AGES]
+    halves += [(f"unverified vote_k {k}",
+                ReliabilityPolicy(verify_hits=False, fallback_on_miss=False,
+                                  vote_k=k),
+                FaultModel(seed=11, base_ber=0.0, sense_ber=5e-4))
+               for k in (1, 3)]
+    t0 = time.perf_counter()
+    for label, policy, fault in halves:
+        ref, ref_rel = sweep_replay("scalar", None, wl, policy, fault)
+        if label.startswith("age"):
+            age = label.split()[1]
+            got[f"reliability_retries_age{age}"] = ref_rel.stats.retries
+            got[f"reliability_fallback_reads_age{age}"] = \
+                ref_rel.stats.fallback_reads
+            got[f"reliability_uncorrectable_age{age}"] = \
+                ref_rel.stats.uncorrectable
+            got[f"reliability_refreshes_age{age}"] = ref.refreshes
+        else:
+            k = label.split()[-1]
+            got[f"reliability_fp_ops_unverified_k{k}"] = int(np.sum(
+                ref.read_hits & (ref.read_values != want)))
+            got[f"reliability_fn_ops_unverified_k{k}"] = int(np.sum(
+                ~ref.read_hits & ~ref.read_errors))
+        for name in ("batched", "sharded"):
+            (rep, rel), grew, _ = on_card(lambda: sweep_replay(
+                name, None, wl, policy, fault))
+            add_launches(launches, grew)
+            cpu, cpu_rel = sweep_replay(name, "cpu", wl, policy, fault)
+            if label.startswith("age"):
+                ok = rep.read_hits & (rep.read_values == want)
+                wrong += int(np.sum(~(ok | rep.read_errors)))
+            for f in ("read_values", "read_hits", "read_errors"):
+                mismatch += int(np.sum(getattr(rep, f) != getattr(ref, f)))
+                if not np.array_equal(getattr(rep, f), getattr(cpu, f)):
+                    raise AssertionError(f"sweep {label} {name}: {f} on the "
+                                         "card differ from device='cpu'")
+            if vars(rel.stats) != vars(cpu_rel.stats) or \
+                    rep.counters != cpu.counters:
+                raise AssertionError(f"sweep {label} {name}: stats on the "
+                                     f"card {rel.stats} {rep.counters} "
+                                     f"against device='cpu' {cpu_rel.stats} "
+                                     f"{cpu.counters}")
+            if grew["sim_lookup"] != rep.kernel_launches \
+                    or rep.kernel_launches != rep.flushes:
+                raise AssertionError(f"sweep {label} {name}: launches "
+                                     f"{grew} for {rep.flushes} flushes")
+        log(f"reliability sweep {label}: scalar {ref_rel.stats}; batched "
+            f"and sharded on the card equal op by op, stats equal "
+            f"device='cpu'")
+    got["reliability_wrong_results_verified"] = wrong
+    got["reliability_backend_mismatch"] = mismatch
+    diff = {k: (got.get(k), v) for k, v in base.items() if got.get(k) != v}
+    if diff or set(got) != set(base):
+        raise AssertionError(f"reliability sweep counters differ from "
+                             f"BENCH_reliability_sweep.baseline.json: {diff}")
+    log(f"reliability sweep [{SWEEP_OPS} ops, {SWEEP_KEY_PAGES} key pages, "
+        f"{SWEEP_CHIPS} chips, fault seed 11, device seed 3]: every "
+        f"counter equals the committed baseline {got}; wall "
+        f"{time.perf_counter() - t0:.3f} s; launches by kernel {launches}")
+    return launches
+
+
+class TimedState(ReliabilityState):
+    """A reliability state that times its installation (the injection)."""
+    install_s = 0.0
+
+    def install(self, backend) -> int:
+        t0 = time.perf_counter()
+        n = super().install(backend)
+        self.install_s = time.perf_counter() - t0
+        return n
+
+
+class Mirrored(TimedBackend):
+    """The batched backend of the full-size reliable replay.  Its first
+    ``N_MIRRORED`` bursts also run on ``ScalarBackend`` over a copy of the
+    pages taken at the first flush (after the injection), with a
+    reliability state of the same policy and fault model; each response,
+    typed error and burst's ``result_bytes`` is held to the reference's.
+    The reference's work is timed apart."""
+
+    def __init__(self, chips, *, mirror_state, **kw):
+        super().__init__(chips, **kw)
+        self.mirror_state = mirror_state
+        self.mirror = None
+        self.compared = 0
+        self.compare_s = 0.0
+        self._queued = []
+
+    def _queue(self, kind, cmd, ticket):
+        if self.compared < N_MIRRORED:
+            self._queued.append((kind, cmd, ticket))
+        return ticket
+
+    def submit_search(self, cmd):
+        return self._queue("search", cmd, super().submit_search(cmd))
+
+    def submit_gather(self, cmd):
+        return self._queue("gather", cmd, super().submit_gather(cmd))
+
+    def submit_lookup(self, cmd):
+        return self._queue("lookup", cmd, super().submit_lookup(cmd))
+
+    def flush(self):
+        queued, self._queued = self._queued, []
+        if queued and self.mirror is None:
+            t0 = time.perf_counter()
+            self.mirror = ScalarBackend(chip_array_from_numpy(
+                chip_array_to_numpy(self.chips)))
+            self.mirror.enable_reliability(self.mirror_state)
+            self.compare_s += time.perf_counter() - t0
+        before = self.stats.result_bytes
+        super().flush()
+        if not queued:
+            return
+        got = [outcome(t) for _, _, t in queued]
+        card_bytes = self.stats.result_bytes - before
+        t0 = time.perf_counter()
+        ref = self.mirror
+        before = ref.stats.result_bytes
+        refs = [getattr(ref, f"submit_{kind}")(cmd) for kind, cmd, _ in queued]
+        ref.flush()
+        where = f"reliable burst {self.compared}"
+        for i, (a, t, (_, cmd, _)) in enumerate(zip(got, refs, queued)):
+            same_outcome(a, outcome(t), cmd, f"{where}, command {i}")
+        if card_bytes != ref.stats.result_bytes - before:
+            raise AssertionError(f"{where}: result_bytes {card_bytes}, the "
+                                 "scalar reference's "
+                                 f"{ref.stats.result_bytes - before}")
+        self.compared += 1
+        self.compare_s += time.perf_counter() - t0
+
+
+RAW_KINDS = ("search", "gather", "lookup", "plan")
+
+
+def raw_lookup(chips, cmd):
+    """The chip model's noise-free lookup over the stored images: key
+    bitmap, first user slot, the slot's 8 value bytes and the value
+    chunk's inner-parity flag (slot, value and flag None on a miss)."""
+    chip, local = chips.route(cmd.page_addr)
+    bitmap = match_bitmap(chip, local, cmd.query, cmd.mask)
+    slots = np.nonzero(unpack_bitmap(mask_header_slots(bitmap),
+                                     SLOTS_PER_PAGE))[0]
+    if slots.size == 0:
+        return bitmap, None, None, None
+    slot = int(slots[0])
+    vchip, vlocal = chips.route(cmd.value_page)
+    vsp = vchip.pages[vlocal]
+    plain = vchip._derandomized_chunk(vsp, vlocal, slot // SLOTS_PER_CHUNK)
+    off = (slot % SLOTS_PER_CHUNK) * 8
+    parity = bool(crc32_rows(plain[None, :])[0]
+                  == vsp.chunk_parities[slot // SLOTS_PER_CHUNK])
+    return bitmap, slot, bytes(plain[off:off + 8]), parity
+
+
+class RawChecked(TimedBackend):
+    """The batched backend of the raw kernel checks: after each flush,
+    every response equals the chip model's noise-free read of the stored
+    image as it stands then (damaged, or repaired by the flush's open
+    burst under the reliability tier): a search's bitmap ``match_bitmap``,
+    a plan's ``plan_bitmap``, a gather's chunks the de-randomized chunks,
+    a lookup's bitmap, slot, value and parity flag ``raw_lookup``'s.  With
+    ``inject`` (a FaultModel) the backend runs without the tier and injects
+    the damage at its first flush, after the bulk load: the lookups'
+    slots and values are then the ``sim_lookup`` kernel's own.  Counts the
+    commands checked and those that read a damaged row, by kind, and the
+    typed errors; the host's work is timed apart."""
+
+    def __init__(self, chips, *, inject=None, **kw):
+        super().__init__(chips, **kw)
+        self.inject = inject
+        self.inject_s = self.compare_s = 0.0
+        self.checked = dict.fromkeys(RAW_KINDS, 0)
+        self.on_damaged = dict.fromkeys(RAW_KINDS, 0)
+        self.typed = 0
+        self._queued = []
+
+    def _queue(self, kind, cmd, ticket):
+        self._queued.append((kind, cmd, ticket))
+        return ticket
+
+    def submit_search(self, cmd):
+        return self._queue("search", cmd, super().submit_search(cmd))
+
+    def submit_gather(self, cmd):
+        return self._queue("gather", cmd, super().submit_gather(cmd))
+
+    def submit_lookup(self, cmd):
+        return self._queue("lookup", cmd, super().submit_lookup(cmd))
+
+    def submit_plan(self, cmd):
+        return self._queue("plan", cmd, super().submit_plan(cmd))
+
+    def flush(self):
+        if self.inject is not None:
+            t0 = time.perf_counter()
+            self.inject.inject(self.chips)
+            self.inject, self.inject_s = None, time.perf_counter() - t0
+        queued, self._queued = self._queued, []
+        super().flush()
+        t0 = time.perf_counter()
+        for kind, cmd, t in queued:
+            got = outcome(t)
+            if isinstance(got, tuple):
+                self.typed += 1
+                continue
+            chip, local = self.chips.route(cmd.page_addr)
+            sp = chip.pages[local]
+            damaged = sp.injected_error_bits > 0
+            if kind == "search":
+                same = np.array_equal(got.bitmap_words, match_bitmap(
+                    chip, local, cmd.query, cmd.mask))
+            elif kind == "plan":
+                same = np.array_equal(got.bitmap_words, plan_bitmap(
+                    chip, local, cmd.plan_include, cmd.plan_exclude))
+            elif kind == "gather":
+                want = [chip._derandomized_chunk(sp, local, int(c))
+                        for c in got.chunk_ids]
+                same = all(np.array_equal(a, b)
+                           for a, b in zip(got.chunks, want))
+            else:
+                bitmap, slot, value, parity = raw_lookup(self.chips, cmd)
+                same = (np.array_equal(got.search.bitmap_words, bitmap)
+                        and got.value_slot == slot and got.value == value
+                        and (slot is None or got.parity_ok == parity))
+                vchip, vlocal = self.chips.route(cmd.value_page)
+                damaged |= vchip.pages[vlocal].injected_error_bits > 0
+            if not same:
+                raise AssertionError(f"raw check: {kind} of page "
+                                     f"{cmd.page_addr} differs from the chip "
+                                     "model's read of the stored image")
+            self.checked[kind] += 1
+            self.on_damaged[kind] += damaged
+        self.compare_s += time.perf_counter() - t0
+
+
+def reliable_replay(label, backend_cls, wl, kp, n_chips, rel, **kw):
+    """One full-size replay over damaged pages (bursts of 64; ``kw`` holds
+    ``fused`` and the backend's arguments), timed like ``run_replay``;
+    ``rel`` is a ``TimedState``, or None for a replay without the tier
+    whose ``RawChecked`` backend injects the damage itself.  Returns the
+    report, launches by kernel and backend."""
+    fused = kw.pop("fused")
+    config = (RunConfig(burst=64, fused=fused) if rel is None else
+              RunConfig.reliable(rel, burst=64, fused=fused))
+    chips = SimChipArray(n_chips=n_chips,
+                         pages_per_chip=-(-2 * kp // n_chips) + 1,
+                         device_seed=7)
+    backend = backend_cls(chips, n_load=2 * kp, **kw)
+    rep, grew, wall_s = on_card(lambda: replay(wl, backend, config))
+    inject_s = backend.inject_s if rel is None else rel.install_s
+    extra = backend.load_s + inject_s + getattr(backend, "compare_s", 0.0)
+    log(f"reliable {label}: wall {wall_s:.3f} s (bulk load of {2 * kp} "
+        f"pages {backend.load_s:.3f} s, fault injection {inject_s:.3f} s, "
+        f"host checks {getattr(backend, 'compare_s', 0.0):.3f} s), "
+        f"{len(wl.ops) / (wall_s - extra):.1f} ops/s after them; reads "
+        f"{rep.n_reads}, scans {rep.n_scans}, typed errors "
+        f"{rep.n_read_errors}, refreshes {rep.refreshes}; flushes "
+        f"{rep.flushes}, kernel_launches {rep.kernel_launches}, launches by "
+        f"kernel {grew}, staged_bytes {rep.staged_bytes}, result_bytes "
+        f"{rep.result_bytes}; "
+        f"{'no reliability tier' if rel is None else rel.stats}")
+    if sum(grew.values()) != rep.kernel_launches:
+        raise AssertionError(f"reliable {label}: launches by kernel {grew} "
+                             f"do not add up to {rep.kernel_launches}")
+    return rep, grew, backend
+
+
+def reliability_full_path(kp, n_ops) -> dict:
+    """Full size, 16 chips: the fused YCSB read-only replay (Zipf 0.9) at
+    age 90 under ``RunConfig.reliable`` on the batched backend, its first
+    bursts held to ScalarBackend; every read the oracle value or a typed
+    UncorrectableReadError, every verdict but CLEAN seen (all pages are
+    past the refresh margin).  The same replay
+    on the sharded backend (8 x 2, timeline on) equals it op by op.  Then
+    the raw kernel checks at age 45: the split replay under the tier (no
+    verification, no sense noise), where ``sim_search`` and ``sim_gather``
+    read damaged and open-repaired arena rows as the chip model reads the
+    pages, and a fused YCSB-E mix without the tier, where ``sim_lookup``'s
+    bitmaps, slots and values and ``sim_plan``'s bitmaps over damaged rows
+    equal the chip model's."""
+    n_chips = SSD_CHANNELS * SSD_DIES
+    launches = {k: 0 for k in native.LAUNCHES}
+    wl = generate(n_ops, n_key_pages=kp, read_ratio=1.0, alpha=0.9, seed=1)
+    want, _ = oracle(wl, kp)
+
+    policy = ReliabilityPolicy(**VERIFIED)
+    fault = FaultModel(seed=11, base_ber=1e-4, retention_days=FULL_AGE,
+                       sense_ber=2e-4)
+    rel = TimedState(policy, fault)
+    rep, grew, backend = reliable_replay(
+        "YCSB-C fused, batched", Mirrored, wl, kp, n_chips, rel, fused=True,
+        mirror_state=ReliabilityState(policy, fault))
+    add_launches(launches, grew)
+    if backend.compared < N_MIRRORED:
+        raise AssertionError(f"{backend.compared} reliable bursts compared "
+                             "with ScalarBackend")
+    del backend
+    ok = rep.read_hits & (rep.read_values == want)
+    if not np.all(ok | rep.read_errors):
+        raise AssertionError("reliable replay: a read is neither the oracle "
+                             "value nor a typed error")
+    # Past the 30-day refresh margin no open is plain CLEAN: the other three
+    # verdicts must all occur (the sweep's age 0 shows CLEAN).
+    s = rel.stats
+    if not (s.refresh_marked and s.fallbacks and s.uncorrectable):
+        raise AssertionError(f"reliable replay at age {FULL_AGE}: a verdict "
+                             f"did not occur: {s}")
+
+    sharded, grew, backend = reliable_replay(
+        "YCSB-C fused, sharded 8 x 2", TimedSharded, wl, kp, n_chips,
+        TimedState(policy, fault), fused=True, channels=SSD_CHANNELS,
+        dies_per_channel=SSD_DIES, timeline=True)
+    add_launches(launches, grew)
+    del backend
+    for f in ("read_values", "read_hits", "read_errors"):
+        if not np.array_equal(getattr(sharded, f), getattr(rep, f)):
+            raise AssertionError(f"reliable sharded replay: {f} differ from "
+                                 "the batched replay's")
+
+    raw_ops = min(n_ops, RAW_OPS)
+    damage = FaultModel(seed=11, base_ber=1e-4, retention_days=RAW_AGE)
+    raw_wl = generate(raw_ops, n_key_pages=kp, read_ratio=1.0, alpha=0.9,
+                      seed=2)
+    rel3 = TimedState(
+        ReliabilityPolicy(verify_hits=False, fallback_on_miss=False), damage)
+    _, grew, backend = reliable_replay("raw check, split", RawChecked,
+                                       raw_wl, kp, n_chips, rel3,
+                                       fused=False)
+    add_launches(launches, grew)
+    split = backend
+    if not (split.on_damaged["search"] and split.on_damaged["gather"]
+            and rel3.stats.fallbacks):
+        raise AssertionError(f"raw check, split: commands on damaged rows "
+                             f"{split.on_damaged}, {rel3.stats.fallbacks} "
+                             "open repairs")
+    # Without the tier the lookups' slots and values are the kernel's.
+    raw_wl = generate(raw_ops, n_key_pages=kp, read_ratio=0.5,
+                      scan_ratio=0.5, max_scan_len=100, alpha=0.9, seed=3)
+    _, grew, backend = reliable_replay("raw check, fused YCSB-E",
+                                       RawChecked, raw_wl, kp, n_chips, None,
+                                       fused=True, inject=damage)
+    add_launches(launches, grew)
+    if not (backend.on_damaged["lookup"] and backend.on_damaged["plan"]):
+        raise AssertionError(f"raw check, fused: commands on damaged rows "
+                             f"{backend.on_damaged}")
+    log(f"raw check [{raw_ops} ops each, age {RAW_AGE}]: responses equal to "
+        f"the chip model's reads by kind, split under the tier "
+        f"{split.checked} ({split.on_damaged} on damaged rows, "
+        f"{split.typed} typed errors, {rel3.stats.fallbacks} pages repaired "
+        f"at open and restaged in their flush), fused YCSB-E without the "
+        f"tier {backend.checked} ({backend.on_damaged} on damaged rows: "
+        f"bitmap, slot, value and parity flag of every lookup)")
+    del backend, split
+    log(f"reliability at full size: every read the oracle value or a typed "
+        f"error, three open verdicts, {N_MIRRORED} bursts equal "
+        f"ScalarBackend, the sharded replay equals the batched op by op, "
+        f"the raw outputs of sim_search, sim_gather, sim_lookup and "
+        f"sim_plan over damaged rows, and of the first two over repaired "
+        f"rows, equal the chip model's")
+    return launches
+
+
+def reliability_phase(kp, n_ops) -> dict:
+    launches = reliability_sweep_path()
+    add_launches(launches, reliability_full_path(kp, n_ops))
+    return launches
+
+
+# --------------------------------------- phase 3d: device faults and chaos
+# benchmarks/chaos_sweep.py's configuration: 16 key pages, 4 chips,
+# replicas 2, 600 ops at read 0.8, seed 11; deadline 500 us, 5 retries,
+# backoff 100 us.
+CHAOS_OPS, CHAOS_KEY_PAGES, CHAOS_CHIPS, CHAOS_SEED = 600, 16, 4, 11
+CHAOS_COUNTERS = ("timeouts", "retries", "backoff_waits", "hedges_won",
+                  "failovers", "remapped_blocks", "degraded_ops",
+                  "shed_requests", "replica_programs", "program_failures")
+# The full-size chaos replays hold 4,096 key pages: replicas triple the
+# host page programs of the bulk load.
+CHAOS_FULL_KEY_PAGES = 4096
+
+
+def chaos_backend(n_index_pages, n_chips, cls=ShardedSsdBackend, **kw):
+    """Replica-enabled sharded backend with spare headroom for the replica
+    copies and grown-bad-block remaps (the sweep's geometry rule)."""
+    arr = SimChipArray(n_chips=n_chips, pages_per_chip=(
+        n_index_pages // n_chips + 1) * 3, device_seed=3)
+    return cls(arr, replicas=2, **kw)
+
+
+def chaos_sweep_path() -> dict:
+    """The JAX chaos sweep's own configuration on the card: the four fault
+    schedules under ``event_serial`` and the overload shed run.  Every
+    counter and read p99 equals the committed baseline; no completed read
+    is wrong; availability under the transient stall is at least 0.99."""
+    base = baseline("chaos_sweep")
+    launches = {k: 0 for k in native.LAUNCHES}
+    got = {}
+    wrong = 0
+    wl = generate(CHAOS_OPS, n_key_pages=CHAOS_KEY_PAGES, read_ratio=0.8,
+                  alpha=0.9, seed=7)
+    exp, _ = oracle(wl, CHAOS_KEY_PAGES)
+    schedules = (
+        ("healthy", FaultSchedule.healthy(seed=CHAOS_SEED)),
+        ("transient_stall", FaultSchedule.transient_stall(
+            die=0, t_start_ms=0.05, dur_ms=1.0, seed=CHAOS_SEED)),
+        ("dying_die", FaultSchedule.dying_die(
+            die=1, t_fail_ms=0.5, program_fail_prob=0.05, seed=CHAOS_SEED)),
+        ("dead_chip", FaultSchedule.dead_chip(chip=0, seed=CHAOS_SEED)))
+    for name, sched in schedules:
+        rep, grew, wall_s = on_card(lambda: replay(
+            wl, chaos_backend(2 * CHAOS_KEY_PAGES, CHAOS_CHIPS),
+            RunConfig.event_serial(fused=True, faults=sched,
+                                   deadline_ns=500_000.0, max_retries=5,
+                                   backoff_base_ns=100_000.0,
+                                   seed=CHAOS_SEED)))
+        add_launches(launches, grew)
+        f = rep.faults
+        ok = (wl.ops == 0) & ~f.op_errors
+        wrong += int(np.sum(rep.read_values[ok] != exp[ok]))
+        for c in CHAOS_COUNTERS:
+            got[f"chaos_{name}_{c}"] = getattr(f, c)
+        got[f"chaos_{name}_op_errors"] = f.n_op_errors
+        got[f"chaos_{name}_read_p99_us"] = round(
+            rep.latency.read_p99_ns / 1e3, 2)
+        if name == "transient_stall":
+            got["chaos_availability"] = 1.0 - f.n_op_errors / len(wl.ops)
+        log(f"chaos {name}: wall {wall_s:.3f} s, launches by kernel {grew}, "
+            f"faults {[getattr(f, c) for c in CHAOS_COUNTERS]} "
+            f"({', '.join(CHAOS_COUNTERS)}), read p99 "
+            f"{rep.latency.read_p99_ns:.1f} ns (simulated)")
+    got["chaos_wrong_results"] = wrong
+    wl = generate(CHAOS_OPS, n_key_pages=CHAOS_KEY_PAGES, read_ratio=1.0,
+                  alpha=0.9, seed=7)
+    rep, grew, wall_s = on_card(lambda: replay(
+        wl, chaos_backend(2 * CHAOS_KEY_PAGES, CHAOS_CHIPS), RunConfig(
+            mode="event", fused=True, arrival="poisson",
+            arrival_rate_qps=5e5, concurrency=8, scheduler="read_priority",
+            ncq_depth=16, shed_capacity=8, seed=CHAOS_SEED,
+            faults=FaultSchedule.healthy(seed=CHAOS_SEED))))
+    add_launches(launches, grew)
+    ok = ~rep.faults.op_errors
+    if np.any(rep.read_values[ok] != oracle(wl, CHAOS_KEY_PAGES)[0][ok]):
+        raise AssertionError("overload run: a completed read is wrong")
+    got["chaos_overload_shed_requests"] = rep.faults.shed_requests
+    got["chaos_overload_completed_ok"] = int(np.sum(ok))
+    diff = {k: (got.get(k), v) for k, v in base.items() if got.get(k) != v}
+    if diff or set(got) != set(base):
+        raise AssertionError(f"chaos sweep counters differ from "
+                             f"BENCH_chaos_sweep.baseline.json: {diff}")
+    log(f"chaos sweep [{CHAOS_OPS} ops, {CHAOS_KEY_PAGES} key pages, "
+        f"{CHAOS_CHIPS} chips, replicas 2, seed {CHAOS_SEED}]: every counter "
+        f"and read p99 equals the committed baseline {got}; launches by "
+        f"kernel {launches}")
+    return launches
+
+
+class FaultSharded(TimedSharded):
+    """Counts the failovers' launches by kernel, their flush phases and
+    commands, and the reads that followed a bad-block remap to a spare page
+    and stayed in their healthy phase's launch."""
+
+    def __init__(self, chips, **kw):
+        super().__init__(chips, **kw)
+        self.remapped_on_kernel = self.failover_cmds = 0
+        self.failover_phases = 0
+        self.failover_launches = dict.fromkeys(native.LAUNCHES, 0)
+        self._remapped = set()
+
+    def _remap_cmd(self, cmd):
+        out = super()._remap_cmd(cmd)
+        if out is not cmd:
+            self._remapped.add(id(out))
+        return out
+
+    def _failover(self, kind, items, dead, bursts):
+        keep, moved = super()._failover(kind, items, dead, bursts)
+        kept = {id(c) for c, _ in keep}
+        self._remapped -= {id(c) for c, _ in items} - kept
+        return keep, moved
+
+    def _flush_failover(self, failover):
+        before = dict(native.LAUNCHES)
+        super()._flush_failover(failover)
+        for k in before:
+            self.failover_launches[k] += native.LAUNCHES[k] - before[k]
+        self.failover_phases += sum(1 for v in failover.values() if v)
+        self.failover_cmds += sum(map(len, failover.values()))
+
+    def flush(self):
+        super().flush()
+        self.remapped_on_kernel += len(self._remapped)
+        self._remapped.clear()
+
+
+def chaos_full_path(kp, n_ops) -> dict:
+    """The dying-die and dead-chip schedules under ``RunConfig.chaos`` on
+    the sharded backend, 8 x 2 chips, replicas 2, the timeline on: a YCSB
+    mix (read 0.75, scan 0.05, Zipf 0.9) whose read values and scan counts
+    equal the oracle in dispatch order, with failovers above 0, each
+    served by a launch over replica rows."""
+    n_chips = SSD_CHANNELS * SSD_DIES
+    launches = {k: 0 for k in native.LAUNCHES}
+    wl = generate(n_ops, n_key_pages=kp, read_ratio=0.75, scan_ratio=0.05,
+                  max_scan_len=100, alpha=0.9, seed=1)
+    for label, sched in (
+            ("dying die", FaultSchedule.dying_die(die=1, seed=CHAOS_SEED)),
+            ("dead chip", FaultSchedule.dead_chip(chip=0, seed=CHAOS_SEED))):
+        backend = chaos_backend(2 * kp, n_chips, FaultSharded, n_load=2 * kp,
+                                channels=SSD_CHANNELS,
+                                dies_per_channel=SSD_DIES, timeline=True)
+        rep, grew, wall_s = on_card(lambda: replay(
+            wl, backend, RunConfig.chaos(sched, burst=64, fused=True,
+                                         seed=CHAOS_SEED,
+                                         record_trace=True)))
+        add_launches(launches, grew)
+        f = rep.faults
+        first = {}
+        for _, kind, qi in rep.trace:
+            if kind == "dispatch":
+                first.setdefault(qi, len(first))
+        order = sorted(first, key=first.get)
+        want, counts = oracle(wl, kp, order)
+        reads, scans = wl.ops == 0, wl.ops == 2
+        ok = ~f.op_errors
+        if sorted(order) != list(range(len(wl.ops))) or not (
+                rep.read_hits[reads & ok].all()
+                and np.array_equal(rep.read_values[reads & ok],
+                                   want[reads & ok])
+                and np.array_equal(rep.scan_counts[scans & ok],
+                                   counts[scans & ok])):
+            raise AssertionError(f"chaos {label}: values or scan counts "
+                                 "differ from the oracle in dispatch order")
+        if f.failovers == 0 or sum(grew.values()) != rep.kernel_launches:
+            raise AssertionError(f"chaos {label}: {f.failovers} failovers, "
+                                 f"launches {grew} for "
+                                 f"{rep.kernel_launches}")
+        # Every failover rode a launch: one a failover phase of a flush.
+        fl = backend.failover_launches
+        if backend.failover_cmds != f.degraded_ops or not (
+                sum(fl.values()) == backend.failover_phases > 0):
+            raise AssertionError(f"chaos {label}: {backend.failover_cmds} "
+                                 f"failover commands for {f.degraded_ops} "
+                                 f"degraded ops, failover launches {fl} for "
+                                 f"{backend.failover_phases} phases")
+        lat = rep.latency
+        log(f"chaos {label} [{kp} key pages, {len(wl.ops)} ops, 8 x 2 chips, "
+            f"replicas 2]: wall {wall_s:.3f} s (bulk load of {2 * kp} pages "
+            f"and their replicas {backend.load_s:.3f} s), "
+            f"{len(wl.ops) / (wall_s - backend.load_s):.1f} ops/s after the "
+            f"load; faults {dataclasses.asdict(f) | {'op_errors': None}}; "
+            f"{backend.failover_cmds} failovers served by the kernels from "
+            f"replica rows, launches by kernel {fl}; "
+            f"{backend.remapped_on_kernel} remapped reads served by the "
+            f"kernels from spare rows; flushes {rep.flushes}, kernel_launches "
+            f"{rep.kernel_launches}, launches by kernel {grew}; simulated "
+            f"read p50 {lat.read_p50_ns:.1f} ns, p99 "
+            f"{lat.read_p99_ns:.1f} ns; "
+            "values and scan counts equal the oracle in dispatch order")
+        del backend
+    return launches
+
+
+def fault_phase(kp, n_ops) -> dict:
+    launches = chaos_sweep_path()
+    add_launches(launches, chaos_full_path(min(kp, CHAOS_FULL_KEY_PAGES),
+                                           n_ops))
+    return launches
+
+
 # ------------------------------------------------------- phase 4: indexes
 # Each index path compares its first bursts of each kind against
 # ScalarBackend, response by response.
@@ -2176,6 +2874,8 @@ def main(argv=None) -> int:
     # 3.-6. The main paths.
     launches, reports = main_path(args.key_pages, args.n_ops)
     for grew in (sharded_path(args.key_pages, args.n_ops, reports),
+                 reliability_phase(args.key_pages, args.n_ops),
+                 fault_phase(args.key_pages, args.n_ops),
                  index_phase(args.key_pages), quickstart_path(),
                  serve_path(dev), reduced_serve_path(dev)):
         for k in launches:

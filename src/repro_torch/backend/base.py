@@ -153,14 +153,31 @@ class MatchBackend(abc.ABC):
     def __init__(self, chips: SimChipArray):
         self.chips = chips
         self.stats = BackendStats()
+        # Reliability tier (repro_torch.reliability.ReliabilityState) or
+        # None.  When attached, flush() runs an optimistic open burst over
+        # every touched page and routes responses through the vote/verify/
+        # fallback finalize paths; uncorrectable pages fail their tickets
+        # with a typed error instead of resolving a wrong bitmap.
+        self.reliability = None
         # Deferred Op.PROGRAM queue: page addr -> [entries, kwargs, tickets].
         # A dict so repeated programs of one page coalesce last-wins before
         # anything touches the chip (insertion order = program order).
         self._program_queue: dict[int, list] = {}
 
     def enable_reliability(self, state) -> None:
-        raise NotImplementedError(
-            "the reliability tier is not ported yet (slice 7 of the port)")
+        """Attach a reliability tier to this backend's flush path.  Usually
+        called through ``ReliabilityState.install`` /
+        ``replay(..., RunConfig.reliable(...))``."""
+        self.reliability = state
+
+    def _open_reliability(self, page_addrs) -> dict:
+        """Flush-time ECC-aware open burst over the flush's unique pages;
+        {} when no reliability tier is attached.  Runs before the kernel
+        backends stage plane rows, so open-time repairs ship corrected
+        rows in the same flush."""
+        if self.reliability is None:
+            return {}
+        return self.reliability.open_burst(self.chips, page_addrs)
 
     # ------------------------------------------------------------- storage
     def program_entries(self, page_addr: int, entries, **kw):
@@ -168,8 +185,8 @@ class MatchBackend(abc.ABC):
 
     def _program_page(self, page_addr: int, entries, kw):
         """Program one page on the chip model, eager or deferred.  The
-        sharded backend overrides it to fan a write out to its replicas;
-        the page keeps its logical address."""
+        sharded backend overrides it to fan a write out to its replicas
+        and remap grown bad blocks; the page keeps its logical address."""
         return self.chips.program_entries(page_addr, entries, **kw)
 
     def submit_program(self, page_addr: int, entries, **kw) -> Ticket:

@@ -49,10 +49,17 @@ queries (q = 0, m = 0) match everything, pad plan rows (PASS_PAD) enter
 neither accumulator and pad lookups (m = all ones) miss; the counters count
 real rows only.
 
-The reliability tier is a later slice of the port and raises
-``NotImplementedError``.
+Without a reliability tier attached, ``SearchResponse.open_verdict``
+always reads CLEAN here.  With ``enable_reliability`` the flush runs the
+same optimistic open burst as the scalar reference before any row is
+staged — verdicts, ECC fallback repairs (restaged in the same flush),
+voting and selective verification in the host tails — and uncorrectable
+pages fail their tickets with a typed error.  The launches themselves do
+not change.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -72,6 +79,7 @@ from repro_torch.kernels.sim_gather.ops import sim_gather
 from repro_torch.kernels.sim_plan.ops import sim_plan
 from repro_torch.kernels.sim_plan.ref import plan_pass_rows
 from repro_torch.kernels.sim_search.ops import sim_search
+from repro_torch.reliability.errors import UncorrectableReadError
 
 from .base import MatchBackend, Ticket
 from .planestore import PlaneStore, next_pow2, padded_rows
@@ -91,8 +99,9 @@ LOOKUP_BLOCK = 8
 # burst, not at flush.
 # ---------------------------------------------------------------------------
 
-def _resolve_bitmap_responses(chips, cmds, placements, out,
-                              matches_of) -> int:
+def _resolve_bitmap_responses(chips, cmds, placements, out, matches_of,
+                              reliability=None, opens=None,
+                              is_plan=False, verdicts=None) -> int:
     """Resolve bitmap-shaped (search / plan) tickets from launch output.
 
     ``placements[i]`` is the ``(row, pi)`` cell of command i's bitmap in
@@ -100,32 +109,63 @@ def _resolve_bitmap_responses(chips, cmds, placements, out,
     host copy of the bitmap (and its popcount), detached from ``out``.
     ``matches_of(cmd)`` is the on-chip match-op count the command's chip
     executed (1 for a search, ``n_passes`` for a plan).  Returns result
-    bytes: 64 B per unique cell (shared cells cross once).
+    bytes: 64 B per unique cell that resolved (shared cells cross once).
+
+    With a reliability tier attached, each unique cell's raw bitmap runs
+    the vote/verify/fallback finalize against the flush's captured page
+    opens; an uncorrectable page fails every ticket of the cell with the
+    typed error instead of resolving.  Without it, ``verdicts`` (one a
+    command: a sharded failover burst's latch verdicts) replace the CLEAN
+    verdict of the raw responses.
     """
-    cache: dict[tuple, SearchResponse] = {}
-    for (cmd, ticket), idx in zip(cmds, placements):
-        resp = cache.get(idx)
-        if resp is None:
+    cache: dict[tuple, tuple] = {}
+    n_ok = 0
+    for i, ((cmd, ticket), idx) in enumerate(zip(cmds, placements)):
+        entry = cache.get(idx)
+        if entry is None:
             raw = np.array(out[idx], copy=True)
-            resp = cache[idx] = SearchResponse(
-                bitmap_words=raw, match_count=int(popcount_words(raw).sum()),
-                open_verdict=OpenVerdict.CLEAN.value)
+            if reliability is None:
+                entry = ("ok", SearchResponse(
+                    bitmap_words=raw,
+                    match_count=int(popcount_words(raw).sum()),
+                    open_verdict=OpenVerdict.CLEAN.value))
+            else:
+                fin = (reliability.finalize_plan if is_plan
+                       else reliability.finalize_search)
+                try:
+                    entry = ("ok", fin(chips, cmd, raw, opens))
+                except UncorrectableReadError as e:
+                    entry = ("err", e)
+            cache[idx] = entry
+            n_ok += entry[0] == "ok"
         chip, _ = chips.route(cmd.page_addr)
         chip.counters.searches += matches_of(cmd)
-        ticket._resolve(resp)
-    return 64 * len(cache)
+        if entry[0] == "ok":
+            resp = entry[1]
+            if verdicts is not None:
+                resp = dataclasses.replace(resp, open_verdict=verdicts[i])
+            ticket._resolve(resp)
+        else:
+            ticket._fail(entry[1])
+    return 64 * n_ok
 
 
-def resolve_search_responses(chips, searches, placements, out) -> int:
+def resolve_search_responses(chips, searches, placements, out,
+                             reliability=None, opens=None,
+                             verdicts=None) -> int:
     return _resolve_bitmap_responses(chips, searches, placements, out,
-                                     lambda cmd: 1)
+                                     lambda cmd: 1, reliability, opens,
+                                     verdicts=verdicts)
 
 
-def resolve_plan_responses(chips, plans, placements, out) -> int:
+def resolve_plan_responses(chips, plans, placements, out,
+                           reliability=None, opens=None,
+                           verdicts=None) -> int:
     """A PLAN's chip executed ``n_passes`` match ops, but only the one
     combined 64 B bitmap per unique cell crossed — the Fig 10 win."""
     return _resolve_bitmap_responses(chips, plans, placements, out,
-                                     lambda cmd: cmd.n_passes)
+                                     lambda cmd: cmd.n_passes, reliability,
+                                     opens, is_plan=True, verdicts=verdicts)
 
 
 def snapshot_parities(chips, addrs) -> dict:
@@ -144,14 +184,25 @@ def snapshot_parities(chips, addrs) -> dict:
 
 
 def resolve_lookup_responses(chips, lookups, bm, val, slots,
-                             parity_snap) -> int:
+                             parity_snap, reliability=None,
+                             opens=None, verdicts=None) -> int:
     """Fused-lookup host tail: batched de-randomize + inner-code verify of
     every hit's value chunk, then ticket resolution.
 
     ``bm`` (n, 16), ``val`` (n, 16), ``slots`` (n,) are the launch outputs
     trimmed to the burst length; ``parity_snap`` maps each value page to
     its flush-time ``snapshot_parities`` row.
+
+    With a reliability tier attached the on-device slot select and value
+    gather are advisory only: the finalize path re-derives the slot from
+    the voted/verified key bitmap and host-reads the value chunk from the
+    current image, so every backend serves byte-identical values under a
+    fault seed.  Without it, ``verdicts`` (one a lookup: a sharded
+    failover burst's latch verdicts) replace the CLEAN verdict.
     """
+    if reliability is not None:
+        return _resolve_lookups_reliable(chips, lookups, bm, reliability,
+                                         opens)
     n = len(lookups)
     key_addrs = [cmd.page_addr for cmd, _ in lookups]
     val_addrs = [cmd.value_page for cmd, _ in lookups]
@@ -190,7 +241,9 @@ def resolve_lookup_responses(chips, lookups, bm, val, slots,
         chip.counters.searches += 1
         resp = SearchResponse(bitmap_words=bm[i].copy(),
                               match_count=int(counts[i]),
-                              open_verdict=OpenVerdict.CLEAN.value)
+                              open_verdict=(OpenVerdict.CLEAN.value
+                                            if verdicts is None
+                                            else verdicts[i]))
         ticket._resolve(LookupResponse(
             search=resp,
             value_slot=int(slots[i]) if hit[i] else None,
@@ -198,7 +251,30 @@ def resolve_lookup_responses(chips, lookups, bm, val, slots,
     return 64 * n + 64 * int(hit_idx.size)
 
 
-def resolve_gather_responses(chips, gathers, out, parity_snap) -> int:
+def _resolve_lookups_reliable(chips, lookups, bm, reliability, opens) -> int:
+    """Reliability tail for a lookup burst: finalize each key bitmap
+    (vote + selective verification + miss fallback) and serve the value
+    through the inner-code-checked host read."""
+    nbytes = 0
+    for a in {cmd.page_addr for cmd, _ in lookups}:
+        chip, _ = chips.route(a)
+        chip.counters.array_reads += 1
+    for i, (cmd, ticket) in enumerate(lookups):
+        chip, _ = chips.route(cmd.page_addr)
+        chip.counters.searches += 1
+        try:
+            resp = reliability.finalize_lookup(
+                chips, cmd, np.array(bm[i], copy=True), opens)
+        except UncorrectableReadError as e:
+            ticket._fail(e)
+            continue
+        ticket._resolve(resp)
+        nbytes += 64 + (64 if resp.value_slot is not None else 0)
+    return nbytes
+
+
+def resolve_gather_responses(chips, gathers, out, parity_snap,
+                             reliability=None, opens=None) -> int:
     """Gather host tail: one stream regeneration + one CRC pass for every
     selected chunk of the whole burst.  ``parity_snap`` holds each page's
     flush-time ``snapshot_parities`` row.  Returns result bytes (64 B per
@@ -239,10 +315,17 @@ def resolve_gather_responses(chips, gathers, out, parity_snap) -> int:
         chip.counters.array_reads += 1
         chip.counters.gathers += 1
         chip.counters.chunks_gathered += k
-        ticket._resolve(GatherResponse(chunks=plain_all[pos:pos + k],
-                                       chunk_ids=chunk_ids,
-                                       parity_ok=parity_all[pos:pos + k]))
+        resp = GatherResponse(chunks=plain_all[pos:pos + k],
+                              chunk_ids=chunk_ids,
+                              parity_ok=parity_all[pos:pos + k])
         pos += k
+        if reliability is not None:
+            try:
+                resp = reliability.finalize_gather(chips, cmd, resp, opens)
+            except UncorrectableReadError as e:
+                ticket._fail(e)
+                continue
+        ticket._resolve(resp)
     return 64 * k_total
 
 # ---------------------------------------------------------------------------
@@ -250,10 +333,14 @@ def resolve_gather_responses(chips, gathers, out, parity_snap) -> int:
 # burst reads key row i and value row i of the arena in place, row i of a
 # gather burst reads its page's row.  Each issues ONE index upload and ONE
 # launch, bumps ``be.stats`` and defers the host tail to the first
-# ``result()`` of the burst.  ``block`` is the backend's padded row block.
+# ``result()`` of the burst.  ``block`` is the backend's padded row block;
+# ``rel`` is the reliability tier the tail finalizes with (None for raw
+# responses) and ``opens`` the flush's page opens, both captured into the
+# tail; ``verdicts`` are a sharded failover burst's latch verdicts.
 # ---------------------------------------------------------------------------
 
-def launch_lookups(be, lookups, block: int) -> None:
+def launch_lookups(be, lookups, block: int, rel, opens,
+                   verdicts=None) -> None:
     """Fused read burst: search + slot select + value gather, 1 launch."""
     key_addrs = [cmd.page_addr for cmd, _ in lookups]
     val_addrs = [cmd.value_page for cmd, _ in lookups]
@@ -281,14 +368,16 @@ def launch_lookups(be, lookups, block: int) -> None:
     be.stats.staged_queries += n
     snap = snapshot_parities(be.chips, val_addrs)
 
-    def tail(bm=bm, val=val, slots=slots, lookups=lookups, n=n, snap=snap):
+    def tail(bm=bm, val=val, slots=slots, lookups=lookups, n=n, snap=snap,
+             rel=rel, opens=opens, verdicts=verdicts):
         be.stats.result_bytes += resolve_lookup_responses(
             be.chips, lookups, tensor_to_words(bm)[:n],
-            tensor_to_words(val)[:n], slots.cpu().numpy()[:n], snap)
+            tensor_to_words(val)[:n], slots.cpu().numpy()[:n], snap,
+            rel, opens, verdicts)
     be._defer_all(lookups, tail)
 
 
-def launch_gathers(be, gathers, block: int) -> None:
+def launch_gathers(be, gathers, block: int, rel, opens) -> None:
     """Bitmap-selected chunk gather of every queued page, 1 launch."""
     addrs = [cmd.page_addr for cmd, _ in gathers]
     rows = be.store.rows_for(addrs)
@@ -306,9 +395,10 @@ def launch_gathers(be, gathers, block: int) -> None:
     be.stats.gathers += n
     snap = snapshot_parities(be.chips, addrs)
 
-    def tail(out=out, gathers=gathers, n=n, snap=snap):
+    def tail(out=out, gathers=gathers, n=n, snap=snap, rel=rel,
+             opens=opens):
         be.stats.result_bytes += resolve_gather_responses(
-            be.chips, gathers, tensor_to_words(out)[:n], snap)
+            be.chips, gathers, tensor_to_words(out)[:n], snap, rel, opens)
     be._defer_all(gathers, tail)
 
 
@@ -381,19 +471,32 @@ class BatchedKernelBackend(MatchBackend):
         lookups, self._lookups = self._lookups, []
         gathers, self._gathers = self._gathers, []
         plans, self._plans = self._plans, []
+        # Reliability open burst BEFORE any staging: open-time ECC repairs
+        # mark their plane rows dirty, so rows_for re-stages the corrected
+        # images in this same flush.  The verdict dict is captured into the
+        # phase tails — later flushes may re-open these pages before the
+        # lazy tails run.
+        opens = self._open_reliability(
+            {c.page_addr for c, _ in searches}
+            | {c.page_addr for c, _ in plans}
+            | {c.page_addr for c, _ in gathers}
+            | {c.page_addr for c, _ in lookups}
+            | {c.value_page for c, _ in lookups})
         if searches:
-            self._flush_searches(searches)
+            self._flush_searches(searches, opens)
         if plans:
-            self._flush_plans(plans)
+            self._flush_plans(plans, opens)
         if lookups:
-            launch_lookups(self, lookups, LOOKUP_BLOCK)
+            launch_lookups(self, lookups, LOOKUP_BLOCK, self.reliability,
+                           opens)
         if gathers:
-            launch_gathers(self, gathers, PAGE_BLOCK)
+            launch_gathers(self, gathers, PAGE_BLOCK, self.reliability,
+                           opens)
         # The plane store is the only source of host->device page traffic.
         self.stats.staged_bytes = self.store.staged_bytes
 
     # ------------------------------------------------------------- staging
-    def _flush_searches(self, searches) -> None:
+    def _flush_searches(self, searches, opens) -> None:
         # Unique pages -> arena rows; unique (query, mask) -> operand rows.
         page_rows: dict[int, int] = {}
         query_rows: dict[tuple, int] = {}
@@ -439,13 +542,15 @@ class BatchedKernelBackend(MatchBackend):
         if len(searches) > 1:
             self.stats.batched_searches += len(searches)
 
-        def tail(out=out, searches=searches, placements=placements):
+        def tail(out=out, searches=searches, placements=placements,
+                 rel=self.reliability, opens=opens):
             self.stats.result_bytes += resolve_search_responses(
-                self.chips, searches, placements, tensor_to_words(out))
+                self.chips, searches, placements, tensor_to_words(out),
+                rel, opens)
         self._defer_all(searches, tail)
 
     # ---------------------------------------------------------------- plans
-    def _flush_plans(self, plans) -> None:
+    def _flush_plans(self, plans, opens) -> None:
         """Fused multi-pass range plans: one launch, one 64 B bitmap a cell.
 
         Unique pages dedup to arena rows exactly like searches; unique
@@ -494,8 +599,10 @@ class BatchedKernelBackend(MatchBackend):
         self.stats.staged_queries += sum(n_passes)
         self.stats.plans += len(plans)
 
-        def tail(out=out, plans=plans, placements=placements):
+        def tail(out=out, plans=plans, placements=placements,
+                 rel=self.reliability, opens=opens):
             self.stats.result_bytes += resolve_plan_responses(
-                self.chips, plans, placements, tensor_to_words(out))
+                self.chips, plans, placements, tensor_to_words(out), rel,
+                opens)
         self._defer_all(plans, tail)
 

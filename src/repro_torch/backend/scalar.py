@@ -15,9 +15,9 @@ bit-exact reference for the fused in-latch ``sim_plan`` kernel.
 ``BackendStats.result_bytes`` still counts only the combined 64 B bitmap
 per plan (what a SiM chip would transmit), not the per-pass payloads.
 
-The reliability tier's flush (ONE optimistic open per unique page, then
-vote / verify / fallback per response) comes with that tier, in slice 7 of
-the port; until then ``enable_reliability`` raises (base.py).
+With a reliability tier attached (``enable_reliability``) the flush opens
+every unique page once, executes the whole burst raw, then runs the
+vote / verify / fallback finalize per response (``_flush_reliable``).
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ from repro_torch.core.commands import (Command, LookupResponse, Op,
 from repro_torch.core.ecc import OpenVerdict
 from repro_torch.core.engine import SimChipArray
 from repro_torch.core.page import mask_header_slots
+from repro_torch.reliability.errors import UncorrectableReadError
 
 from .base import MatchBackend, Ticket
 
@@ -77,6 +78,9 @@ class ScalarBackend(MatchBackend):
                 self.stats.flushes += 1
             return
         self.stats.flushes += 1
+        if self.reliability is not None:
+            self._flush_reliable(queue)
+            return
         for kind, cmd, ticket in queue:
             if kind == "search":
                 ticket._resolve(self.chips.search(cmd))
@@ -97,6 +101,76 @@ class ScalarBackend(MatchBackend):
                 ticket._resolve(resp)
                 self.stats.gathers += 1
                 self.stats.result_bytes += 64 * len(resp.chunk_ids)
+
+    def _flush_reliable(self, queue) -> None:
+        """Reliability-tier flush: ONE optimistic open per unique page (the
+        same staged-open discipline as the kernel backends), raw execution
+        against the possibly open-repaired images, then the shared
+        vote/verify/fallback finalize per response.
+
+        Raw execution runs for the WHOLE burst before any finalize step, so
+        resolve-time repairs (verification failures, lookup-miss
+        escalations) cannot retroactively change a burst peer's raw bitmap
+        — exactly the ordering a single kernel launch imposes.
+        """
+        rel = self.reliability
+        addrs = set()
+        for _, cmd, _ in queue:
+            addrs.add(cmd.page_addr)
+            if cmd.value_page is not None:
+                addrs.add(cmd.value_page)
+        opens = rel.open_burst(self.chips, addrs)
+
+        def dead(cmd):
+            if opens[cmd.page_addr].verdict is OpenVerdict.UNCORRECTABLE:
+                return cmd.page_addr
+            if cmd.value_page is not None and \
+                    opens[cmd.value_page].verdict is OpenVerdict.UNCORRECTABLE:
+                return cmd.value_page
+            return None
+
+        raws = []
+        for kind, cmd, _ in queue:
+            if dead(cmd) is not None:
+                raws.append(None)
+            elif kind == "search":
+                raws.append(self.chips.search(cmd).bitmap_words)
+            elif kind == "lookup":
+                raws.append(self.chips.search(Command(
+                    Op.SEARCH, cmd.page_addr, query=cmd.query,
+                    mask=cmd.mask)).bitmap_words)
+            elif kind == "plan":
+                raws.append(self._plan(cmd).bitmap_words)
+            else:
+                raws.append(self.chips.gather(cmd))
+
+        finalize = {"search": rel.finalize_search,
+                    "lookup": rel.finalize_lookup,
+                    "plan": rel.finalize_plan,
+                    "gather": rel.finalize_gather}
+        for (kind, cmd, ticket), raw in zip(queue, raws):
+            try:
+                if raw is None:
+                    raise UncorrectableReadError(dead(cmd))
+                resp = finalize[kind](self.chips, cmd, raw, opens)
+                ticket._resolve(resp)
+                if kind == "lookup":
+                    self.stats.result_bytes += 64 + (
+                        64 if resp.value_slot is not None else 0)
+                elif kind == "gather":
+                    self.stats.result_bytes += 64 * len(resp.chunk_ids)
+                else:
+                    self.stats.result_bytes += 64
+            except UncorrectableReadError as e:
+                ticket._fail(e)
+            if kind == "search":
+                self.stats.searches += 1
+            elif kind == "lookup":
+                self.stats.lookups += 1
+            elif kind == "plan":
+                self.stats.plans += 1
+            else:
+                self.stats.gathers += 1
 
     # Open-verdict severity, worst-wins across a plan's passes.
     _VERDICT_RANK = {v.value: i for i, v in enumerate((

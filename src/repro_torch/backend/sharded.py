@@ -46,16 +46,28 @@ returns bit-exact results plus a simulated latency and energy account.
 
 ``replicas=k`` stripes k-1 extra copies of every eagerly or deferred
 programmed page over the next chips, from the top of each chip's local
-space.  The device-fault tier (``enable_device_faults``: outages, failover
-to replicas, bad-block remaps) and the reliability tier come with slice 7
-of the port and raise until then; the approximate-match vote factor is 1.
+space.  ``enable_device_faults`` attaches a ``DeviceFaultState``: programs
+draw seeded failures and remap grown bad blocks to spares (bounded
+retries), writes to a dead chip relocate to a spare on the next live chip,
+and at flush every command that touches a chip dead at the fault clock
+is rewritten to a live replica page and served through the same kernels
+from the replica's rows (``_flush_failover``, counted in ``failovers``
+and ``degraded_ops``, charged as degraded full-page reads), or fails with
+a typed ``DegradedReadError``.  Only the outage set routes a command
+there.  With a reliability tier attached (``enable_reliability``)
+the flush runs the optimistic open burst before staging and charges
+read-retries, fallback reads and ``vote_k`` senses a match on the
+timeline.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
 from repro_torch.core.bits import popcount_words
 from repro_torch.core.commands import Command, Op
+from repro_torch.core.ecc import OpenVerdict
 from repro_torch.core.engine import SimChipArray
 from repro_torch.flash.params import (BITMAP_BYTES, CHUNK_BYTES, FlashParams,
                                       OPEN_OVERHEAD_BYTES, PAGE_BYTES)
@@ -64,6 +76,7 @@ from repro_torch.kernels.layout import tensor_to_words, words_to_tensor
 from repro_torch.kernels.sim_plan.ops import sim_plan_chips
 from repro_torch.kernels.sim_plan.ref import plan_pass_rows
 from repro_torch.kernels.sim_search.ops import sim_search_chips
+from repro_torch.reliability.errors import DegradedReadError
 
 from .base import MatchBackend, Ticket
 from .batched import (launch_gathers, launch_lookups, resolve_plan_responses,
@@ -96,6 +109,10 @@ class ShardedSsdBackend(MatchBackend):
     kernels.  Results are bit-identical to the scalar and batched backends
     over the same array.
     """
+
+    # Bounded program retry budget: a seeded program-failure draw relocates
+    # the page to a spare and retries at most this many times.
+    MAX_PROGRAM_ATTEMPTS = 8
 
     def __init__(self, chips: SimChipArray, *, channels: int | None = None,
                  dies_per_channel: int | None = None,
@@ -137,6 +154,10 @@ class ShardedSsdBackend(MatchBackend):
         self._replica_of: dict[int, tuple[int, ...]] = {}
         self._spare_next: list[int] = [chips.pages_per_chip - 1
                                        for _ in chips.chips]
+        # DeviceFaultState (repro_torch.reliability.device_faults) or None.
+        self.faults = None
+        # The arena of failover reads (replica rows), made at the first.
+        self._failover_store: PlaneStore | None = None
 
     # ------------------------------------------------------------ geometry
     @classmethod
@@ -167,17 +188,22 @@ class ShardedSsdBackend(MatchBackend):
         return built
 
     def _program_chips(self, page_addr: int) -> list[int]:
-        """Chips a logical program lands on: the primary plus every
-        replica — replica fan-out is charged on the timelines like any
-        other program."""
-        return [page_addr % self.n_chips] + [
-            r % self.n_chips for r in self._replica_of.get(page_addr, ())]
+        """Chips a logical program lands on: the (possibly remapped)
+        primary plus every replica — replica fan-out is charged on the
+        timelines like any other program."""
+        return [self._mapped(page_addr) % self.n_chips] + [
+            self._mapped(r) % self.n_chips
+            for r in self._replica_of.get(page_addr, ())]
 
+    # --------------------------------------------------- fault-aware placing
     def enable_device_faults(self, state) -> None:
-        raise NotImplementedError(
-            "device faults on the sharded backend (outages, replica "
-            "failover, bad-block remaps) are not ported yet (the "
-            "device-fault tier, slice 7 of the port)")
+        """Attach a DeviceFaultState: programs draw seeded failures (grown
+        bad blocks remap to spares), reads consult the outage set at flush
+        and fail over to replicas, and the attached timeline schedules
+        stall windows onto its resource lines."""
+        self.faults = state
+        if self.timeline is not None:
+            self.timeline.attach_faults(state)
 
     def _alloc_spare(self, chip: int) -> int:
         """Carve one spare page off the top of a chip's local space."""
@@ -187,10 +213,30 @@ class ShardedSsdBackend(MatchBackend):
             local -= 1
         if local < 0:
             raise RuntimeError(
-                f"chip {chip}: out of spare pages (replicas exhausted the "
-                "local address space)")
+                f"chip {chip}: out of spare pages (replicas/bad-block "
+                "remap exhausted the local address space)")
         self._spare_next[chip] = local - 1
         return compose(chip, local, self.n_chips)
+
+    def _next_live_chip(self, chip: int) -> int:
+        """First chip after ``chip`` (round-robin) not in the outage set."""
+        for off in range(1, self.n_chips + 1):
+            c = (chip + off) % self.n_chips
+            if not self.faults.chip_dead(c):
+                return c
+        return chip                        # whole array dead: nowhere left
+
+    def _mapped(self, addr: int) -> int:
+        """Follow the bad-block remap chain to the live physical page."""
+        if self.faults is None:
+            return addr
+        remap = self.faults.remap
+        for _ in range(len(remap)):
+            nxt = remap.get(addr)
+            if nxt is None:
+                break
+            addr = nxt
+        return addr
 
     def _replica_addrs(self, addr: int) -> tuple[int, ...]:
         """The k-1 replica pages of a primary (allocated at first program,
@@ -206,12 +252,35 @@ class ShardedSsdBackend(MatchBackend):
         return reps
 
     def _program_page(self, page_addr: int, entries, kw):
-        """Program the primary, then every replica; the logical address
-        never changes."""
-        built = self.chips.program_entries(page_addr, entries, **kw)
+        """Fault-aware program: primary (with bad-block remap and bounded
+        seeded retry) plus every replica.  The logical address never
+        changes — only the physical placement does."""
+        built = self._program_physical(page_addr, entries, kw)
         for rep in self._replica_addrs(page_addr):
-            self.chips.program_entries(rep, entries, **kw)
+            self._program_physical(rep, entries, kw)
+            if self.faults is not None:
+                self.faults.stats.replica_programs += 1
         return built
+
+    def _program_physical(self, addr: int, entries, kw):
+        """Program one physical page, relocating off dead chips and around
+        seeded program failures (grown bad blocks) with a bounded retry."""
+        target = self._mapped(addr)
+        if self.faults is not None:
+            chip = target % self.n_chips
+            if self.faults.chip_dead(chip):
+                # The owning chip is offline: relocate to a spare on the
+                # next live chip so writes survive the outage.
+                spare = self._alloc_spare(self._next_live_chip(chip))
+                self.faults.mark_bad(target, spare)
+                target = spare
+            for attempt in range(self.MAX_PROGRAM_ATTEMPTS):
+                if not self.faults.program_fails(target, attempt):
+                    break
+                spare = self._alloc_spare(target % self.n_chips)
+                self.faults.mark_bad(target, spare)
+                target = spare
+        return self.chips.program_entries(target, entries, **kw)
 
     # ------------------------------------------------------------ deferred
     def _submit(self, kind: str, cmd: Command) -> Ticket:
@@ -259,7 +328,7 @@ class ShardedSsdBackend(MatchBackend):
                 self.timeline.observe_program_group(
                     [c for a in programs for c in self._program_chips(a)],
                     restage_chips=[self.decompose(a)[0] for a in staged])
-            self.stats.staged_bytes = self.store.staged_bytes
+            self.stats.staged_bytes = self._staged_bytes
         if not any(self._pending):
             if programs:
                 self.stats.flushes += 1
@@ -268,18 +337,46 @@ class ShardedSsdBackend(MatchBackend):
         phases = {"search": [], "lookup": [], "gather": [], "plan": []}
         for queue in self._pending:
             for kind, cmd, t in queue:
+                if self.faults is not None and self.faults.remap:
+                    cmd = self._remap_cmd(cmd)
                 phases[kind].append((cmd, t))
             queue.clear()
         bursts: dict[int, ChipBurst] = {}
+        # Device-fault failover: commands whose chip is offline at the
+        # fault clock are rewritten to live replica pages (or fail typed)
+        # and served after the healthy phases — see _flush_failover.
+        failover = None
+        if self.faults is not None:
+            dead = self.faults.dead_chips()
+            if dead:
+                failover = {}
+                for kind in ("search", "lookup", "gather", "plan"):
+                    phases[kind], failover[kind] = self._failover(
+                        kind, phases[kind], dead, bursts)
+        # Reliability open burst before staging (open-time ECC repairs
+        # restage corrected rows in this flush); retries and full-page
+        # fallback reads charge the owning die's timeline record.
+        opens = self._open_reliability(
+            {c.page_addr for items in phases.values() for c, _ in items}
+            | {c.value_page for c, _ in phases["lookup"]})
+        if opens and self.timeline is not None:
+            for a, po in opens.items():
+                b = self._burst(bursts, self.decompose(a)[0])
+                b.retry_senses += po.result.retries_used
+                if po.verdict is OpenVerdict.FALLBACK_ECC:
+                    b.fallback_reads += 1
+        rel = self.reliability
         if phases["search"]:
-            self._flush_searches(phases["search"], bursts)
+            self._flush_searches(phases["search"], bursts, rel, opens)
         if phases["plan"]:
-            self._flush_plans(phases["plan"], bursts)
+            self._flush_plans(phases["plan"], bursts, rel, opens)
         if phases["lookup"]:
-            self._flush_lookups(phases["lookup"], bursts)
+            self._flush_lookups(phases["lookup"], bursts, rel, opens)
         if phases["gather"]:
-            self._flush_gathers(phases["gather"], bursts)
-        self.stats.staged_bytes = self.store.staged_bytes
+            self._flush_gathers(phases["gather"], bursts, rel, opens)
+        if failover is not None and any(failover.values()):
+            self._flush_failover(failover)
+        self.stats.staged_bytes = self._staged_bytes
         staged, self.store.staged_log = self.store.staged_log, []
         if self.timeline is not None:
             for a in staged:   # dirty planes restage in storage mode
@@ -291,10 +388,115 @@ class ShardedSsdBackend(MatchBackend):
     def _burst(self, bursts: dict[int, ChipBurst], chip: int) -> ChipBurst:
         return bursts.setdefault(chip, ChipBurst(chip))
 
+    @property
+    def _staged_bytes(self) -> int:
+        """Page bytes the arena and the failover arena shipped."""
+        return self.store.staged_bytes + (
+            0 if self._failover_store is None
+            else self._failover_store.staged_bytes)
+
+    @property
+    def _vote_factor(self) -> int:
+        """Senses a match costs under the reliability tier's voting."""
+        return 1 if self.reliability is None else \
+            self.reliability.vote_factor
+
+    # ---------------------------------------------------- degraded failover
+    def _remap_cmd(self, cmd: Command) -> Command:
+        """Follow grown-bad-block remaps; spares hold the same entries and
+        responses are derandomized (address-independent), so the remapped
+        read is bit-identical to the original."""
+        mapped = self._mapped(cmd.page_addr)
+        vmapped = (self._mapped(cmd.value_page)
+                   if cmd.value_page is not None else None)
+        if mapped == cmd.page_addr and vmapped == cmd.value_page:
+            return cmd
+        return dataclasses.replace(cmd, page_addr=mapped,
+                                   value_page=vmapped)
+
+    def _failover(self, kind: str, items, dead: set[int], bursts):
+        """Split one flush list into the commands that stay on their pages
+        and the failovers: a command touching a dead chip is rewritten to
+        live addresses (``_live_addr`` books the degraded full-page reads)
+        and its key page latched on the chip model, the implicit open of
+        the modelled controller's read; it fails with a typed
+        DegradedReadError when no replica survives.  Returns the kept
+        (command, ticket) pairs and the (command, ticket, verdict)
+        failovers, the verdict None for a gather (which opens nothing)."""
+        keep, moved = [], []
+        for cmd, ticket in items:
+            touched = [cmd.page_addr]
+            if cmd.value_page is not None:
+                touched.append(cmd.value_page)
+            if not any(a % self.n_chips in dead for a in touched):
+                keep.append((cmd, ticket))
+                continue
+            try:
+                addr = self._live_addr(cmd.page_addr, dead, bursts)
+                vaddr = (self._live_addr(cmd.value_page, dead, bursts)
+                         if cmd.value_page is not None else None)
+            except DegradedReadError as e:
+                ticket._fail(e)
+                continue
+            self.faults.stats.degraded_ops += 1
+            verdict = None if kind == "gather" else self.chips.latch(addr)
+            moved.append((dataclasses.replace(cmd, page_addr=addr,
+                                              value_page=vaddr),
+                          ticket, verdict))
+        return keep, moved
+
+    def _live_addr(self, addr: int, dead: set[int], bursts) -> int:
+        """A live physical address for ``addr``: the page itself when its
+        chip is up, else the first replica on a live chip (charged as one
+        degraded full-page read).  Raises DegradedReadError when neither
+        survives."""
+        if addr % self.n_chips not in dead:
+            return self._mapped(addr)
+        for rep in self._replica_of.get(addr, ()):
+            rep = self._mapped(rep)
+            chip = rep % self.n_chips
+            if chip not in dead:
+                self.faults.stats.failovers += 1
+                b = self._burst(bursts, chip)
+                b.degraded_reads += 1
+                b.pcie_bytes += PAGE_BYTES
+                return rep
+        raise DegradedReadError(addr)
+
+    def _flush_failover(self, failover) -> None:
+        """Serve a flush's failovers through the kernels, one launch a
+        phase, after the healthy phases.  The replica holds the same
+        entries and responses are derandomized, so each result is
+        bit-identical to the healthy read.  As the modelled controller's
+        degraded read, a failover bypasses the reliability tier (a raw
+        response carrying its latch verdict) and costs the timeline only
+        the degraded reads ``_failover`` booked: the phases' own sense,
+        match and bus charges go to a scratch record.  Its rows stage in
+        an arena of their own, so the main arena's residency and dirty
+        restages, which the timeline charges, stay those of the healthy
+        reads; the bytes it ships count in ``staged_bytes``."""
+        if self._failover_store is None:
+            self._failover_store = PlaneStore(
+                self.chips, block=SHARDED_PAGE_BLOCK, device=self.device)
+        main, self.store = self.store, self._failover_store
+        scratch: dict[int, ChipBurst] = {}
+        try:
+            for kind, phase in (("search", self._flush_searches),
+                                ("plan", self._flush_plans),
+                                ("lookup", self._flush_lookups),
+                                ("gather", self._flush_gathers)):
+                if failover[kind]:
+                    phase([(c, t) for c, t, _ in failover[kind]], scratch,
+                          None, None, [v for _, _, v in failover[kind]])
+        finally:
+            self.store = main
+
+    # ------------------------------------------------------------- staging
     def _chip_rows(self, addrs: list[list[int]], bursts):
         """Stage every active chip's unique pages; returns the active chips
         and the (c_pad, n_pad) arena-row matrix, padded chips and rows at
-        row 0.  Charges one staged sense a page to its chip."""
+        row 0.  Charges one staged sense a page to its chip (``vote_k``
+        of them under the reliability tier's voting)."""
         active = [c for c in range(self.n_chips) if addrs[c]]
         n_pad = max(padded_rows(len(addrs[c]), SHARDED_PAGE_BLOCK)
                     for c in active)
@@ -308,14 +510,17 @@ class ShardedSsdBackend(MatchBackend):
             off += k
             self.chips.chips[c].counters.array_reads += k
             b = self._burst(bursts, c)
-            b.senses += k
+            b.senses += k * self._vote_factor
             b.bus_match_bytes += OPEN_OVERHEAD_BYTES * k
         return active, idx2d
 
     # ------------------------------------------------------------- searches
-    def _flush_searches(self, searches, bursts) -> None:
+    def _flush_searches(self, searches, bursts, rel, opens,
+                        verdicts=None) -> None:
         # Per chip: unique pages -> arena rows; unique (query, mask) ->
         # operand rows; every command lands at one (chip, qi, pi) cell.
+        # ``rel`` and ``opens`` finalize the responses (reliability tier);
+        # ``verdicts``, one a command, are a failover burst's open verdicts.
         n = self.n_chips
         addrs: list[list[int]] = [[] for _ in range(n)]
         page_rows: list[dict[int, int]] = [{} for _ in range(n)]
@@ -361,19 +566,21 @@ class ShardedSsdBackend(MatchBackend):
         for cmd, _ in searches:
             c, _local = self.decompose(cmd.page_addr)
             b = self._burst(bursts, c)
-            b.matches += 1
+            b.matches += self._vote_factor
             b.bus_match_bytes += BITMAP_BYTES
             b.pcie_bytes += BITMAP_BYTES + QUERY_BYTES
 
         stacked = [(slot_of[c], qi, pi) for c, qi, pi in placements]
 
-        def tail(out=out, searches=searches, stacked=stacked):
+        def tail(out=out, searches=searches, stacked=stacked, rel=rel,
+                 opens=opens, verdicts=verdicts):
             self.stats.result_bytes += resolve_search_responses(
-                self.chips, searches, stacked, tensor_to_words(out))
+                self.chips, searches, stacked, tensor_to_words(out), rel,
+                opens, verdicts)
         self._defer_all(searches, tail)
 
     # --------------------------------------------------------------- plans
-    def _flush_plans(self, plans, bursts) -> None:
+    def _flush_plans(self, plans, bursts, rel, opens, verdicts=None) -> None:
         """Fused range plans, stacked across chips like searches: per chip,
         unique pages -> rows and unique (include, exclude) pass tuples ->
         plan groups; ONE chip-axis ``sim_plan`` launch."""
@@ -423,34 +630,41 @@ class ShardedSsdBackend(MatchBackend):
         for cmd, _ in plans:
             c, _local = self.decompose(cmd.page_addr)
             b = self._burst(bursts, c)
-            b.matches += cmd.n_passes          # every pass matches on-die
+            b.matches += cmd.n_passes * self._vote_factor  # every pass
             b.bus_match_bytes += BITMAP_BYTES  # ...but ONE bitmap crosses
             b.pcie_bytes += BITMAP_BYTES + QUERY_BYTES * cmd.n_passes
 
         stacked = [(slot_of[c], gi, pi) for c, gi, pi in placements]
 
-        def tail(out=out, plans=plans, stacked=stacked):
+        def tail(out=out, plans=plans, stacked=stacked, rel=rel,
+                 opens=opens, verdicts=verdicts):
             self.stats.result_bytes += resolve_plan_responses(
-                self.chips, plans, stacked, tensor_to_words(out))
+                self.chips, plans, stacked, tensor_to_words(out), rel,
+                opens, verdicts)
         self._defer_all(plans, tail)
 
     # -------------------------------------------------------------- lookups
-    def _flush_lookups(self, lookups, bursts) -> None:
+    def _flush_lookups(self, lookups, bursts, rel, opens,
+                       verdicts=None) -> None:
         """Row-stacked fused burst across every chip (the batched backend's
         launch); each side of a lookup charges its own chip's burst."""
-        launch_lookups(self, lookups, SHARDED_LOOKUP_BLOCK)
-        for addrs in ({cmd.page_addr for cmd, _ in lookups},
-                      {cmd.value_page for cmd, _ in lookups}):
+        launch_lookups(self, lookups, SHARDED_LOOKUP_BLOCK, rel, opens,
+                       verdicts)
+        vf = self._vote_factor
+        # Key pages re-sense vote_k times for majority voting; value pages
+        # sense once (the chunk read is verified by parity, not by vote).
+        for addrs, senses in (({cmd.page_addr for cmd, _ in lookups}, vf),
+                              ({cmd.value_page for cmd, _ in lookups}, 1)):
             for a in addrs:                    # one open per unique page
                 c, _ = self.decompose(a)
                 b = self._burst(bursts, c)
-                b.senses += 1
+                b.senses += senses
                 b.bus_match_bytes += OPEN_OVERHEAD_BYTES
         for cmd, _ in lookups:
             kc, _ = self.decompose(cmd.page_addr)
             vc, _ = self.decompose(cmd.value_page)
             kb = self._burst(bursts, kc)
-            kb.matches += 1
+            kb.matches += vf
             kb.bus_match_bytes += BITMAP_BYTES
             kb.pcie_bytes += BITMAP_BYTES + QUERY_BYTES
             vb = self._burst(bursts, vc)
@@ -458,10 +672,12 @@ class ShardedSsdBackend(MatchBackend):
             vb.pcie_bytes += CHUNK_BYTES
 
     # -------------------------------------------------------------- gathers
-    def _flush_gathers(self, gathers, bursts) -> None:
+    def _flush_gathers(self, gathers, bursts, rel, opens,
+                       verdicts=None) -> None:
         """Row-stacked gather across every chip (the batched backend's
-        launch), charged to each page's chip."""
-        launch_gathers(self, gathers, SHARDED_PAGE_BLOCK)
+        launch), charged to each page's chip.  A gather opens nothing, so
+        a failover burst's ``verdicts`` are all None."""
+        launch_gathers(self, gathers, SHARDED_PAGE_BLOCK, rel, opens)
         for cmd, _ in gathers:
             c, _local = self.decompose(cmd.page_addr)
             k = int(popcount_words(

@@ -158,18 +158,22 @@ class SimChip:
             raise RuntimeError(f"page {page_addr} is not in L1")
         self._l2_addr, self._l1_addr = page_addr, None
 
+    def latch(self, page_addr: int) -> int:
+        """Latch a page in L2 for a search: the implicit open/close of the
+        convenience paths (engine-level only; the SSD scheduler always
+        issues opens explicitly), skipped when the page is latched already.
+        Returns the open verdict's value, CLEAN when no open ran."""
+        if self._l2_addr == page_addr:
+            return OpenVerdict.CLEAN.value
+        result, _ = self.page_open(page_addr)
+        self.page_close(page_addr)
+        return result.verdict.value
+
     def search(self, cmd: Command) -> SearchResponse:
         """Execute a search against the page currently latched in L2."""
         if cmd.op is not Op.SEARCH:
             raise ValueError(cmd.op)
-        if self._l2_addr != cmd.page_addr:
-            # Implicit open/close for convenience paths (engine-level only;
-            # the SSD scheduler always issues opens explicitly).
-            result, _ = self.page_open(cmd.page_addr)
-            self.page_close(cmd.page_addr)
-            verdict = result.verdict.value
-        else:
-            verdict = OpenVerdict.CLEAN.value
+        verdict = self.latch(cmd.page_addr)
         sp = self.pages[cmd.page_addr]
         words = page_slot_words(sp.raw)
         # Deserializer randomizes the query with the page's stream (§IV-C1):
@@ -284,6 +288,10 @@ class SimChipArray:
     def program_entries(self, page_addr: int, entries, **kw):
         chip, local = self.route(page_addr)
         return chip.program_entries(local, entries, **kw)
+
+    def latch(self, page_addr: int) -> int:
+        chip, local = self.route(page_addr)
+        return chip.latch(local)
 
     def search(self, cmd: Command) -> SearchResponse:
         chip, local = self.route(cmd.page_addr)

@@ -43,9 +43,9 @@ program-suspend, as in SSDSim) and the client clock does NOT advance — the
 cost surfaces later, as restage bytes and program-line backlog.
 
 The timeline is numpy on the host: the device a backend runs on never
-changes its numbers.  Scheduling device-fault stall windows onto the
-resource lines (``attach_faults``) comes with the device-fault tier, slice 7
-of the port, and raises ``NotImplementedError`` until then.
+changes its numbers.  With a ``DeviceFaultState`` attached
+(``attach_faults``), the stall windows active at each service time block
+their die or channel lines before the burst's chains run.
 """
 from __future__ import annotations
 
@@ -84,8 +84,9 @@ class BurstTimeline:
 
     def __init__(self, params: FlashParams):
         self.params = params
-        # Device-fault state: always None until the device-fault tier is
-        # ported (``attach_faults``).
+        # Device-fault state (repro_torch.reliability.DeviceFaultState) or
+        # None; survives reset() — the replay attaches it once, before the
+        # post-load reset.
         self.faults = None
         self.reset()
 
@@ -117,9 +118,21 @@ class BurstTimeline:
         self.write_latencies: list[float] = []
 
     def attach_faults(self, state) -> None:
-        raise NotImplementedError(
-            "device-fault stall windows on the timeline are not ported yet "
-            "(the device-fault tier, slice 7 of the port)")
+        """Attach a DeviceFaultState: transient stall windows active at
+        each service time are scheduled onto the SSDSim resource lines
+        (``block_die``/``block_channel``) before the chains run."""
+        self.faults = state
+
+    def _apply_stalls(self, t: float) -> None:
+        if self.faults is None:
+            return
+        for w in self.faults.stalls_active_at(t):
+            if w.kind == "die":
+                self.sim.block_die(w.target % self.params.n_dies,
+                                   w.t_end_ns)
+            else:
+                self.sim.block_channel(w.target % self.params.channels,
+                                       w.t_end_ns)
 
     @property
     def n_chips(self) -> int:
@@ -156,6 +169,7 @@ class BurstTimeline:
             return 0.0
         sim = self.sim
         start = self.now if at is None else at
+        self._apply_stalls(start)
         end = start
         for b in bursts:
             die = b.chip % self.params.n_dies
@@ -207,6 +221,7 @@ class BurstTimeline:
         """
         sim = self.sim
         start = self.now if at is None else at
+        self._apply_stalls(start)
         t = sim._pcie(start, PAGE_BYTES)
         t = sim._program(chip % self.params.n_dies, t)
         self.write_latencies.append(t - start)

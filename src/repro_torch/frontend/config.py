@@ -16,15 +16,23 @@ configuration reads the same in both packages:
   * **event frontend** — ``concurrency`` client streams, ``arrival``
     process (``zero``/``poisson``/``trace``), ``scheduler`` policy
     (``fifo``/``read_priority``/``fair_share``), ``ncq_depth`` bound and
-    the per-stream ``seed``.
+    the per-stream ``seed``;
+  * **reliability tier** — ``reliability=ReliabilityState(...)``;
+  * **fault tolerance** — ``faults`` (a seeded
+    :class:`repro_torch.reliability.FaultSchedule` of die/channel stalls,
+    chip outages and program failures), per-command ``deadline_ns`` with
+    ``max_retries`` bounded seeded-backoff re-admissions
+    (``backoff_base_ns``), hedged reads after a ``hedge_quantile`` burst
+    latency, and ``shed_capacity`` overload backpressure (arrivals beyond
+    NCQ + shed_capacity complete with a typed error instead of queueing
+    unboundedly).
 
-The knobs of paths not ported yet — the ``reliability`` tier, device
-``faults``, and the event frontend's robustness tier (deadlines, hedging,
-shedding) — keep their fields, and setting any of them raises
-``NotImplementedError`` at construction, so a config that constructs is a
-config that runs.  Presets: ``eager()``, ``buffered()``, ``open_loop()``
-and ``event_serial()`` (event mode at one stream, zero inter-arrival and
-FIFO, which replays bit-identically to ``mode="serial"``).
+Every combination is validated at construction, so a config that
+constructs is a config that runs.  Presets: ``eager()``, ``buffered()``,
+``reliable()``, ``open_loop()``, ``event_serial()`` (event mode at one
+stream, zero inter-arrival and FIFO, which replays bit-identically to
+``mode="serial"``) and ``chaos()`` (event mode with a fault schedule plus
+deadline/retry armed).
 """
 from __future__ import annotations
 
@@ -32,19 +40,11 @@ import dataclasses
 import typing
 
 from repro_torch.buffer.writebuffer import WriteBuffer
+from repro_torch.reliability.device_faults import FaultSchedule
 
 MODES = ("serial", "event")
 ARRIVALS = ("zero", "poisson", "trace")
 SCHEDULERS = ("fifo", "read_priority", "fair_share")
-
-# Knob -> (value that leaves it off, the slice of the port that runs it).
-_NOT_PORTED = {
-    "reliability": (None, "the reliability tier (slice 7 of the port)"),
-    "faults": (None, "the device-fault tier (slice 7 of the port)"),
-    "deadline_ns": (None, "deadlines of the event frontend (slice 7)"),
-    "hedge_quantile": (None, "hedged reads of the event frontend (slice 7)"),
-    "shed_capacity": (None, "load shedding of the event frontend (slice 7)"),
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,7 +59,7 @@ class RunConfig:
     # --- write path (§VI DRAM write buffer)
     write_buffer: bool | WriteBuffer = False
     write_high_water: int = 16
-    # --- reliability tier
+    # --- reliability tier (repro_torch.reliability.ReliabilityState | None)
     reliability: typing.Any = None
     # --- event frontend: arrivals
     concurrency: int = 1                 # concurrent client streams
@@ -72,7 +72,7 @@ class RunConfig:
     seed: int = 0                        # arrival-process seed root
     record_trace: bool = False           # keep the full event trace
     # --- fault tolerance
-    faults: typing.Any = None
+    faults: FaultSchedule | None = None
     deadline_ns: float | None = None     # per-read deadline (event mode)
     max_retries: int = 2                 # re-admissions before typed error
     backoff_base_ns: float = 50_000.0    # exp backoff base (seeded jitter)
@@ -93,11 +93,6 @@ class RunConfig:
             v = getattr(self, field)
             if not isinstance(v, int) or v < 1:
                 raise ValueError(f"{field} must be an int >= 1, got {v!r}")
-        for field, (off, where) in _NOT_PORTED.items():
-            if getattr(self, field) != off:
-                raise NotImplementedError(
-                    f"{field}={getattr(self, field)!r}: {where} is not "
-                    "ported yet")
         if self.arrival == "poisson":
             if self.mode != "event":
                 raise ValueError("poisson arrivals need mode='event'")
@@ -123,19 +118,41 @@ class RunConfig:
                              f"arrival='trace', not {self.arrival!r}")
         if self.mode == "serial":
             # Event-only knobs left at non-defaults would silently not
-            # apply to the serial replay — refuse instead.
+            # apply to the serial replay — refuse instead.  (``faults`` IS
+            # allowed in serial mode: outages/remaps act on the backend
+            # flush path; only the queueing-time machinery needs the event
+            # loop.)
             for field, default in (("concurrency", 1), ("arrival", "zero"),
-                                   ("scheduler", "fifo")):
+                                   ("scheduler", "fifo"),
+                                   ("deadline_ns", None),
+                                   ("hedge_quantile", None),
+                                   ("shed_capacity", None)):
                 if getattr(self, field) != default:
                     raise ValueError(
                         f"{field}={getattr(self, field)!r} needs "
                         "mode='event' (the serial replay has no queue)")
+        if self.deadline_ns is not None and self.deadline_ns <= 0:
+            raise ValueError(f"deadline_ns must be > 0, got "
+                             f"{self.deadline_ns!r}")
         if not isinstance(self.max_retries, int) or self.max_retries < 0:
             raise ValueError(f"max_retries must be an int >= 0, got "
                              f"{self.max_retries!r}")
         if self.backoff_base_ns <= 0:
             raise ValueError(f"backoff_base_ns must be > 0, got "
                              f"{self.backoff_base_ns!r}")
+        if self.hedge_quantile is not None and not (
+                0.0 < self.hedge_quantile < 1.0):
+            raise ValueError(f"hedge_quantile must be in (0, 1), got "
+                             f"{self.hedge_quantile!r}")
+        if self.shed_capacity is not None and (
+                not isinstance(self.shed_capacity, int)
+                or self.shed_capacity < 0):
+            raise ValueError(f"shed_capacity must be an int >= 0, got "
+                             f"{self.shed_capacity!r}")
+        if self.faults is not None and not isinstance(self.faults,
+                                                      FaultSchedule):
+            raise ValueError(f"faults must be a FaultSchedule, got "
+                             f"{self.faults!r}")
         if not isinstance(self.write_buffer, (bool, WriteBuffer)):
             raise ValueError("write_buffer must be a bool or a WriteBuffer, "
                              f"got {self.write_buffer!r}")
@@ -155,6 +172,13 @@ class RunConfig:
                    **kw)
 
     @classmethod
+    def reliable(cls, reliability, **kw) -> "RunConfig":
+        """Serial replay with the §IV-C reliability tier attached."""
+        if reliability is None:
+            raise ValueError("reliable() needs a ReliabilityState")
+        return cls(reliability=reliability, **kw)
+
+    @classmethod
     def open_loop(cls, arrival_rate_qps: float, *, concurrency: int = 16,
                   scheduler: str = "read_priority", **kw) -> "RunConfig":
         """Open-loop event-driven run: Poisson arrivals at the offered
@@ -169,6 +193,19 @@ class RunConfig:
         FIFO — whose replay must be bit-identical to ``mode='serial'``."""
         return cls(mode="event", arrival="zero", concurrency=1,
                    scheduler="fifo", **kw)
+
+    @classmethod
+    def chaos(cls, faults, *, deadline_ns: float = 2_000_000.0,
+              max_retries: int = 4, scheduler: str = "read_priority",
+              **kw) -> "RunConfig":
+        """Event-driven run under a device fault schedule with the
+        robustness tier armed: per-read deadlines, bounded seeded-backoff
+        retries, read-priority scheduling.  Hedging and shedding stay off
+        unless asked for — they change the latency story."""
+        if faults is None:
+            raise ValueError("chaos() needs a FaultSchedule")
+        return cls(mode="event", faults=faults, deadline_ns=deadline_ns,
+                   max_retries=max_retries, scheduler=scheduler, **kw)
 
     # ------------------------------------------------------------- helper
     def with_(self, **kw) -> "RunConfig":

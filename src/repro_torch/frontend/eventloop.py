@@ -25,12 +25,25 @@ simulator in the FTL-simulator shape:
   * **background programs** — writes never hold the device: an eager
     program or a §VI write-buffer group flush queues on the die program
     timelines and completes as a later ``prog_done`` event, contending
-    with FIFO reads exactly like the deferred backlog it is.
-
-The robustness tier of the JAX package's event loop — per-read deadlines
-with seeded-backoff retries, hedged reads, overload shedding and the
-device-fault hooks — comes with slice 7 of the port; its ``RunConfig``
-knobs raise until then.
+    with FIFO reads exactly like the deferred backlog it is;
+  * **robustness tier** (armed by ``RunConfig`` fault knobs) — read
+    bursts carry a per-command ``deadline_ns``; a burst that blows it
+    raises a ``read_timeout`` event, and each timed-out request either
+    re-admits at the NCQ *head* after a seeded exponential backoff
+    (``backoff_base_ns * 2**(attempt-1)`` plus jitter from
+    ``default_rng([seed, 0xB0FF, qi, attempt])``) or — past
+    ``max_retries`` — completes with a typed ``CommandTimeoutError``
+    flag.  ``hedge_quantile`` fires a duplicate (hedged) read once the
+    burst's latency exceeds that quantile of prior burst latencies; the
+    duplicate's work is charged to the flash timelines, and the request
+    finishes at whichever copy wins.  ``shed_capacity`` bounds the
+    overflow queue: arrivals beyond NCQ + shed complete immediately with
+    a typed ``OverloadShedError`` flag instead of queueing unboundedly.
+    Retries re-dispatch for *timing only* — the functional value was
+    captured at first dispatch, so a retry can delay a result but never
+    change it.  Pages whose primary chip is dead at service time are
+    charged as replica ``degraded_reads`` on the failover chip, mirroring
+    the sharded backend's routing.
 
 The *functional* execution rides the same :class:`ReplayCore` as the
 serial replay, invoked in dispatch order — so at
@@ -53,7 +66,7 @@ import heapq
 import numpy as np
 
 from repro_torch.flash.params import (BITMAP_BYTES, CHUNK_BYTES,
-                                      OPEN_OVERHEAD_BYTES)
+                                      OPEN_OVERHEAD_BYTES, PAGE_BYTES)
 from repro_torch.flash.timeline import BurstTimeline, ChipBurst
 from repro_torch.workload.ycsb import Workload
 
@@ -73,6 +86,9 @@ class Request:
     stream: int        # client stream (qi % concurrency)
     kind: int          # op code: 0 read, 1 write, 2 scan
     t_arrive: float    # arrival time, ns (admission wait counts from here)
+    attempt: int = 0   # timeout re-admissions so far (robustness tier)
+    served: bool = False   # functional value already captured (a retry
+                           # re-dispatches for timing only, never re-executes)
 
 
 class EventLoop:
@@ -89,6 +105,12 @@ class EventLoop:
         self.timeline = BurstTimeline.for_chips(self.n_chips)
         self.params = self.timeline.params
         self.sched = make_scheduler(config)
+        # Robustness tier: the fault state is owned by the core (shared
+        # with a fault-aware backend); this loop schedules its stall
+        # windows onto the frontend timeline and fills its counters.
+        self.fault_state = self.core.fault_state
+        if self.fault_state is not None:
+            self.timeline.attach_faults(self.fault_state)
 
         self.heap: list = []               # (t, seq, kind, payload)
         self._seq = 0
@@ -140,10 +162,18 @@ class EventLoop:
         if kind == "arrive":
             req: Request = payload
             self._note(t, "arrive", req.qi)
+            cap = self.config.shed_capacity
             if self._depth() < self.config.ncq_depth:
                 self.ncq.append(req)
                 self.admitted += 1
                 self._note_peak()
+            elif cap is not None and len(self.overflow) >= cap:
+                # Overload backpressure: refuse with a typed error rather
+                # than queue unboundedly (OverloadShedError semantics).
+                self.fault_state.stats.shed_requests += 1
+                self.core.op_errors[req.qi] = True
+                self.n_done += 1
+                self._note(t, "shed", req.qi)
             else:
                 self.overflow.append(req)
                 self.admission_waits += 1
@@ -151,6 +181,35 @@ class EventLoop:
             for req in payload:
                 self._complete(req, t)
             self.busy = False
+        elif kind == "read_timeout":
+            # The burst blew its deadline: every member either re-admits
+            # after a seeded backoff or exhausts into a typed error.  The
+            # device itself stays busy until burst_free — the timeout
+            # frees the *client*, not the flash resources.
+            st = self.fault_state.stats
+            for req in payload:
+                st.timeouts += 1
+                self.inflight -= 1
+                if req.attempt >= self.config.max_retries:
+                    # CommandTimeoutError semantics: typed per-op error.
+                    self.core.op_errors[req.qi] = True
+                    self.n_done += 1
+                    self._note(t, "timeout_error", req.qi)
+                else:
+                    req.attempt += 1
+                    st.backoff_waits += 1
+                    self._push(t + self._backoff_ns(req.qi, req.attempt),
+                               "readmit", req)
+            self._admit(t)
+        elif kind == "burst_free":
+            self.busy = False
+        elif kind == "readmit":
+            # Head re-admission: a retried command beats fresh queue
+            # entries to the next burst (it has already waited longest).
+            self.fault_state.stats.retries += 1
+            self.ncq.insert(0, payload)
+            self._note(t, "readmit", payload.qi)
+            self._note_peak()
         elif kind == "scan_done":
             self._complete(payload, t)
             self.busy = False
@@ -162,6 +221,8 @@ class EventLoop:
     # ---------------------------------------------------------- dispatching
     def _pump(self, t: float) -> None:
         """Admit waiting arrivals, then keep the device fed."""
+        if self.fault_state is not None:
+            self.fault_state.advance(t)    # fault clock follows dispatch
         self._admit(t)
         while not self.busy:
             if self.sched.pick_read(self.ncq) is not None:
@@ -197,7 +258,8 @@ class EventLoop:
         """
         core, cfg = self.core, self.config
         batch: list[Request] = []
-        while len(core.pending) < cfg.burst:
+        n_retry = 0                        # re-dispatches (timing only)
+        while len(core.pending) + n_retry < cfg.burst:
             i = self.sched.pick_read(self.ncq)
             if i is None:
                 if not self._absorb_inline(t):
@@ -205,7 +267,15 @@ class EventLoop:
                 continue
             req = self.ncq.pop(i)
             self._note(t, "dispatch", req.qi)
-            if core.queue_read(req.qi):
+            if req.served:
+                # A retried command: its value was captured at first
+                # dispatch (reads are idempotent) — it joins the burst
+                # for service timing only, never re-executes.
+                batch.append(req)
+                self.inflight += 1
+                n_retry += 1
+            elif core.queue_read(req.qi):
+                req.served = True
                 batch.append(req)
                 self.inflight += 1
             else:
@@ -220,7 +290,51 @@ class EventLoop:
         core.resolve_burst()
         self.dispatches += 1
         self.busy = True
-        self._push(t + lat, "read_done", batch)
+        lat = self._maybe_hedge(batch, t, lat)
+        deadline = cfg.deadline_ns
+        if deadline is not None and lat > deadline:
+            self._push(t + deadline, "read_timeout", batch)
+            self._push(t + lat, "burst_free", None)
+        else:
+            self._push(t + lat, "read_done", batch)
+
+    HEDGE_MIN_SAMPLES = 16     # burst-latency history before hedging arms
+
+    def _backoff_ns(self, qi: int, attempt: int) -> float:
+        """Exponential backoff with seeded jitter (deterministic per
+        (seed, op, attempt) — same run, same waits, byte for byte)."""
+        base = self.config.backoff_base_ns
+        jitter = float(np.random.default_rng(
+            [self.config.seed, 0xB0FF, qi, attempt]).random()) * base
+        return base * (2.0 ** (attempt - 1)) + jitter
+
+    def _maybe_hedge(self, batch: list[Request], t: float,
+                     lat: float) -> float:
+        """Fire a hedged duplicate of a slow burst; return effective lat.
+
+        Once enough burst latencies have been observed, a burst slower
+        than the ``hedge_quantile`` of the prior history dispatches a
+        duplicate at ``t + hedge_delay``; the duplicate's senses, matches
+        and bus bytes are charged to the flash timelines (no free
+        recovery) and the batch completes at whichever copy finishes
+        first.  ``hedges_won`` counts the duplicates that won.
+        """
+        q = self.config.hedge_quantile
+        if q is None:
+            return lat
+        hist = self.timeline.burst_latencies
+        if len(hist) <= self.HEDGE_MIN_SAMPLES:   # history excludes current
+            return lat
+        delay = float(np.percentile(np.asarray(hist[:-1]), q * 100.0))
+        if lat <= delay:
+            return lat
+        hedge_lat = self.timeline.observe_flush(
+            self._read_burst_counts(batch), at=t + delay,
+            wait_program_lines=self.sched.wait_program_lines)
+        if delay + hedge_lat < lat:
+            self.fault_state.stats.hedges_won += 1
+            return delay + hedge_lat
+        return lat
 
     def _absorb_inline(self, t: float) -> bool:
         """Mid-burst: execute the next write inline iff it only absorbs.
@@ -243,14 +357,33 @@ class EventLoop:
         self._issue_write(self.ncq.pop(i), t)
         return True
 
+    def _route_chip(self, page: int) -> tuple[int, bool]:
+        """Chip serving ``page`` now: the primary, or — primary dead —
+        the first live replica chip, mirroring the sharded backend's
+        ``(chip + r) % n`` replica striping.  Returns (chip, degraded)."""
+        chip = page % self.n_chips
+        if self.fault_state is None or not self.fault_state.chip_dead(chip):
+            return chip, False
+        for r in range(1, getattr(self.core.backend, "replicas", 1)):
+            c = (chip + r) % self.n_chips
+            if not self.fault_state.chip_dead(c):
+                return c, True
+        return chip, False     # no live replica: the op fails typed anyway
+
     def _read_burst_counts(self, batch: list[Request]) -> list[ChipBurst]:
-        """Per-chip resource counts of one read burst (see module doc)."""
+        """Per-chip resource counts of one read burst (see module doc).
+
+        A page whose primary chip is dead charges a full-page degraded
+        read on its failover chip (the host-side path moves the whole
+        page) instead of in-flash match work.
+        """
         bursts: dict[int, ChipBurst] = {}
 
         def b(chip: int) -> ChipBurst:
             return bursts.setdefault(chip, ChipBurst(chip))
 
         opened: set[int] = set()
+        degraded: set[int] = set()
         for req in batch:
             kp = int(self.wl.key_pages[req.qi])
             vp = int(self.wl.value_pages[req.qi])
@@ -258,16 +391,24 @@ class EventLoop:
                 if p in opened:
                     continue
                 opened.add(p)
-                cb = b(p % self.n_chips)
-                cb.senses += 1
-                cb.bus_match_bytes += OPEN_OVERHEAD_BYTES
-            kb = b(kp % self.n_chips)
-            kb.matches += 1
-            kb.bus_match_bytes += BITMAP_BYTES
-            kb.pcie_bytes += BITMAP_BYTES + QUERY_BYTES
-            vb = b(vp % self.n_chips)       # speculative value-page gather
-            vb.bus_match_bytes += CHUNK_BYTES
-            vb.pcie_bytes += CHUNK_BYTES
+                chip, is_degraded = self._route_chip(p)
+                cb = b(chip)
+                if is_degraded:
+                    degraded.add(p)
+                    cb.degraded_reads += 1
+                    cb.pcie_bytes += PAGE_BYTES
+                else:
+                    cb.senses += 1
+                    cb.bus_match_bytes += OPEN_OVERHEAD_BYTES
+            if kp not in degraded:          # degraded pages match host-side
+                kb = b(kp % self.n_chips)
+                kb.matches += 1
+                kb.bus_match_bytes += BITMAP_BYTES
+                kb.pcie_bytes += BITMAP_BYTES + QUERY_BYTES
+            if vp not in degraded:          # speculative value-page gather
+                vb = b(vp % self.n_chips)
+                vb.bus_match_bytes += CHUNK_BYTES
+                vb.pcie_bytes += CHUNK_BYTES
         return [bursts[c] for c in sorted(bursts)]
 
     def _issue_scan(self, req: Request, t: float) -> None:
@@ -348,8 +489,8 @@ class EventLoop:
         if self.n_done != n:
             raise RuntimeError(
                 f"event loop drained with {self.n_done}/{n} ops complete")
-        # End of stream: the final write-buffer drain happens "after" the
-        # last event, like the serial finish.
+        # End of stream: the final write-buffer drain + reliability
+        # refreshes happen "after" the last event, like the serial finish.
         pages = self.core.finish()
         if pages:
             chips = self._program_group_chips(pages)

@@ -16,11 +16,12 @@ does the next op execute":
 A backend with a flash timeline (the sharded backend's ``timeline=True``)
 measures the replayed op stream: the timeline is reset after the bulk load
 and the report carries its burst and write latencies, makespan and energy.
-Results are bit-identical to the JAX package's replay on the same
-workload.
-
-Not ported yet, and refused by :class:`~repro_torch.frontend.config.RunConfig`:
-the reliability and device-fault tiers.
+With ``config.reliability`` the loaded pages are fault-injected and every
+flush runs the §IV-C pipeline (typed per-op errors in
+``report.reliability``, stale pages refreshed at the end); with any fault
+knob set a ``DeviceFaultState`` attaches to the backend after the load
+(``report.faults``).  Results are bit-identical to the JAX package's
+replay on the same workload.
 """
 from __future__ import annotations
 
@@ -32,13 +33,15 @@ from repro_torch.core.bits import SLOTS_PER_CHUNK, unpack_bitmap
 from repro_torch.core.commands import Command
 from repro_torch.core.page import mask_header_slots
 from repro_torch.core.range_query import evaluate_plan_on_pages, exact_range
-from repro_torch.reliability import (DegradedReadError,
-                                     UncorrectableReadError, require_clean)
+from repro_torch.core.page import entries_from_plain
+from repro_torch.reliability import (DegradedReadError, DeviceFaultState,
+                                     FaultSchedule, UncorrectableReadError,
+                                     require_clean)
 from repro_torch.workload.ycsb import KEYS_PER_PAGE, Workload, value_page_of
 
 from .config import RunConfig
-from .report import (CounterReport, EnergyReport, LatencyReport,
-                     ReliabilityReport, RunReport)
+from .report import (CounterReport, EnergyReport, FaultReport,
+                     LatencyReport, ReliabilityReport, RunReport)
 
 FULL_MASK = 0xFFFFFFFFFFFFFFFF
 
@@ -76,6 +79,24 @@ class ReplayCore:
                 value_page_of(p, self.n_key_pages),
                 self.values[s:s + KEYS_PER_PAGE])
 
+        # Fault injection corrupts the images loaded above (install also
+        # switches every later flush onto the reliability path).
+        self.reliability = config.reliability
+        if self.reliability is not None:
+            self.reliability.install(backend)
+
+        # Device-fault tier: outages/stalls/program failures attach AFTER
+        # the bulk load (the load is setup — a chip dead at t=0 keeps its
+        # loaded image and is served via replicas from the first real op).
+        self.fault_state = None
+        if (config.faults is not None or config.deadline_ns is not None
+                or config.hedge_quantile is not None
+                or config.shed_capacity is not None):
+            self.fault_state = DeviceFaultState(
+                config.faults or FaultSchedule.healthy(seed=config.seed))
+            if hasattr(backend, "enable_device_faults"):
+                backend.enable_device_faults(self.fault_state)
+
         # Timeline-coupled backends (sharded + BurstTimeline) measure the
         # replayed op stream only — the bulk load is setup, not workload.
         self.timeline = getattr(backend, "timeline", None)
@@ -91,11 +112,12 @@ class ReplayCore:
         self.out = np.zeros(n, dtype=np.uint64)
         self.hits = np.zeros(n, dtype=bool)
         self.read_errors = np.zeros(n, dtype=bool)
-        self.op_errors = np.zeros(n, dtype=bool)
+        self.op_errors = np.zeros(n, dtype=bool)   # fault-tier typed errors
         self.scan_counts = np.zeros(n, dtype=np.int64)
         self.flushes = 0
         self.n_reads = self.n_writes = self.n_scans = 0
         self.programs = self.write_flushes = 0
+        self.refreshes = 0
         self.pending: list[int] = []        # op indices of queued reads
         self._inflight: list[list] = []     # flushed, not-yet-drained bursts
 
@@ -303,6 +325,13 @@ class ReplayCore:
                 return "flush", self.flush_write_buffer()
             return "absorb", []
         self.resolve_burst()                # read-your-writes ordering
+        if self.reliability is not None:
+            # The reliability finalize verifies hits against the on-flash
+            # image at RESOLVE time (selective verification is a re-read,
+            # not a kernel output), so the image must not change under an
+            # in-flight burst: drain the depth-1 pipeline before
+            # reprogramming.
+            self.drain_inflight()
         self.backend.program_entries(
             vpage, self.values[s:s + KEYS_PER_PAGE])
         self.programs += 1
@@ -314,6 +343,8 @@ class ReplayCore:
         if self.wb is None or not self.wb.n_dirty:
             return []
         self.resolve_burst()        # queued reads precede the programs
+        if self.reliability is not None:
+            self.drain_inflight()
         pages = self.wb.dirty_pages
         self.programs += self.wb.flush(self.backend)
         self.write_flushes += 1
@@ -321,11 +352,14 @@ class ReplayCore:
 
     # ------------------------------------------------------------- finish
     def finish(self) -> list[int]:
-        """End of stream: final burst, final buffer drain, full drain.
-        Returns the final program group's pages."""
+        """End of stream: final burst, final buffer drain, full drain and
+        reliability refreshes.  Returns the final program group's pages."""
         self.resolve_burst()
         pages = self.flush_write_buffer()
         self.drain_inflight()
+        if self.reliability is not None:
+            self.refreshes = _drain_refreshes(self.backend,
+                                              self.reliability)
         return pages
 
     # ------------------------------------------------------------- report
@@ -345,7 +379,25 @@ class ReplayCore:
                 buffer_read_hits=(self.wb.stats.read_hits
                                   if self.wb is not None else 0)),
             reliability=ReliabilityReport(
-                n_read_errors=int(self.read_errors.sum())))
+                read_errors=(self.read_errors
+                             if self.reliability is not None else None),
+                n_read_errors=int(self.read_errors.sum()),
+                refreshes=self.refreshes,
+                stats=(self.reliability.stats
+                       if self.reliability is not None else None)))
+        if self.fault_state is not None:
+            fs = self.fault_state.stats
+            rep.faults = FaultReport(
+                timeouts=fs.timeouts, retries=fs.retries,
+                backoff_waits=fs.backoff_waits, hedges_won=fs.hedges_won,
+                failovers=fs.failovers,
+                remapped_blocks=fs.remapped_blocks,
+                degraded_ops=fs.degraded_ops,
+                shed_requests=fs.shed_requests,
+                replica_programs=fs.replica_programs,
+                program_failures=fs.program_failures,
+                op_errors=self.op_errors,
+                n_op_errors=int(self.op_errors.sum()))
         if self.timeline is not None:
             rep.latency = LatencyReport(
                 burst_latencies_ns=np.asarray(
@@ -355,6 +407,41 @@ class ReplayCore:
                 makespan_ns=self.timeline.now)
             rep.energy = EnergyReport(total_pj=self.timeline.energy_pj)
         return rep
+
+
+def _drain_refreshes(backend, reliability) -> int:
+    """Rewrite every page the open bursts flagged CLEAN_NEEDS_REFRESH.
+
+    A refresh is read-through-ECC then reprogram: sub-threshold raw errors
+    are corrected (the simulator's ``_repair`` restores the clean image),
+    the entries are re-extracted and ride the deferred ``Op.PROGRAM`` path
+    with a fresh timestamp — so the rewrite groups and coalesces exactly
+    like workload writes and later opens see a young, error-free page.
+    Pages whose raw error count exceeds the outer-code budget cannot be
+    refreshed (the data is gone); they stay marked and keep surfacing as
+    typed errors.
+    """
+    chips = backend.chips
+    tickets = []
+    for addr in sorted(reliability.refresh_due):
+        chip, local = chips.route(addr)
+        sp = chip.pages.get(local)
+        if sp is None:
+            continue
+        if sp.injected_error_bits > reliability.policy.ecc.t_correctable:
+            continue                       # beyond refresh: uncorrectable
+        if sp.injected_error_bits:
+            reliability.stats.corrected_bits += sp.injected_error_bits
+            chip._repair(sp, local)
+        plain = chip._derandomize_page(sp, local)
+        entries = entries_from_plain(plain, sp.n_entries)
+        tickets.append(backend.submit_program(
+            addr, entries, timestamp_ns=reliability.now_ns))
+    if tickets:
+        backend.flush()
+    reliability.refresh_due.clear()
+    reliability.stats.refreshes += len(tickets)
+    return len(tickets)
 
 
 def replay(workload: Workload, backend: MatchBackend,
@@ -371,7 +458,10 @@ def replay(workload: Workload, backend: MatchBackend,
     ``write_buffer`` — absorb into the §VI DRAM buffer, serve overlay
     reads, and drain in grouped deferred-program bursts at the high-water
     mark.  Scans (``ops == 2``) replay as fused Op.PLAN bursts, one flush
-    a scan.
+    a scan.  With a ``reliability`` state attached the replay runs against
+    fault-injected pages and per-op errors surface in
+    ``report.reliability``; with a fault schedule or robustness knob, the
+    device-fault counters and typed per-op errors are in ``report.faults``.
 
     ``config.mode == "event"`` runs the event-loop simulator instead: ops
     *arrive* (Poisson, trace or all at zero), queue in a bounded NCQ, and

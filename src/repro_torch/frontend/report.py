@@ -2,19 +2,23 @@
 
 The same nested sections as the JAX package's report — ``latency`` /
 ``energy`` / ``counters`` / ``reliability`` / ``faults`` — so results read
-the same in both packages.  Two executors fill it so far:
+the same in both packages.  Three executors fill it:
 
   * the analytic simulator (``workload.runner.run`` →
     :meth:`RunReport.from_analytic`): latency percentiles, energy and the
     SSD resource counters;
   * the serial functional replay (``repro_torch.frontend.replay``): the
     backend counters and the bit-exact per-op outputs (read values and
-    hits, scan counts).
+    hits, scan counts), with the timeline's latencies and energy on a
+    timeline-coupled backend;
+  * the event-driven frontend (``mode="event"``), which also fills the
+    per-request latency distribution and the NCQ/admission counters.
 
-The remaining sections stay at their defaults until the paths that fill
-them (the timeline-coupled sharded backend, the reliability and
-device-fault tiers, the event frontend) are ported.  The flat attribute
-names of both executors' results (``report.read_median_ns``,
+A replay with the reliability tier fills ``reliability`` (typed per-op
+errors, refreshes, the ``ReliabilityStats``); one with the device-fault
+tier (``RunConfig(faults=...)`` or any robustness knob) fills ``faults``,
+whose counter names are the JAX package's schema.  The flat attribute
+names of the executors' results (``report.read_median_ns``,
 ``report.n_reads``, ...) are read-only properties over the sections.
 """
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """The typed per-ticket errors the replay catches.
 
-Only the error types and ``require_clean`` are ported so far; the
-reliability tier that raises them (fault injection, voting, verification,
-device faults) is a later slice of the port.
+``UncorrectableReadError`` comes from the reliability tier (policy.py),
+``DegradedReadError`` from the sharded backend's device-fault path; a
+ticket resolves to one of them instead of a wrong response.
 """
 from __future__ import annotations
 

@@ -411,21 +411,70 @@ def test_plan_path_queues_and_resolves():
     assert (int(t.result().bitmap_words[0]) >> 10) & 1
 
 
+# The name is from before slice 7, when this path raised; it is kept so
+# the test's ID stays stable across the port's slices.
 @pytest.mark.parametrize("name", ["sharded"])
 def test_unported_backends_raise_not_implemented(name):
-    """The sharded backend is ported (slice 6) and builds from the factory;
-    what it still lacks, the device-fault tier, raises naming slice 7."""
-    be = make_backend(name, SimChipArray(2, 4), device="cpu")
-    be.program_entries(1, np.arange(10, 20, dtype=np.uint64))
-    assert be.search(Command.search(1, 12)).match_count == 1
-    assert be.stats.kernel_launches == 1
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        be.enable_device_faults(object())
+    """The sharded backend is ported with its device-fault tier: it builds
+    from the factory, and ``enable_device_faults`` attaches a
+    ``DeviceFaultState`` — a dead chip's search fails over to its replica
+    and runs through a launch over the replica's row, equal to the JAX
+    backend's host read of the replica."""
+    from repro.backend import make_backend as jmake_backend
+    from repro.reliability import DeviceFaultState as JDeviceFaultState
+    from repro.reliability import FaultSchedule as JFaultSchedule
+    from repro_torch.reliability import DeviceFaultState, FaultSchedule
+
+    port = make_backend(name, SimChipArray(2, 8), device="cpu", replicas=2)
+    ref = jmake_backend(name, JSimChipArray(2, 8), use_kernel=False,
+                        replicas=2)
+    for be in (port, ref):
+        be.program_entries(1, np.arange(10, 20, dtype=np.uint64))
+    assert port.search(Command.search(1, 12)).match_count == 1
+    assert port.stats.kernel_launches == 1
+    state = DeviceFaultState(FaultSchedule.dead_chip(chip=1))
+    port.enable_device_faults(state)
+    ref.enable_device_faults(JDeviceFaultState(JFaultSchedule.dead_chip(
+        chip=1)))
+    assert port.faults is state
+    got = port.search(Command.search(1, 12))
+    want = ref.search(JCommand.search(1, 12))
+    np.testing.assert_array_equal(got.bitmap_words, want.bitmap_words)
+    assert got.open_verdict == want.open_verdict
+    assert got.match_count == 1 and port.stats.kernel_launches == 2
+    assert vars(state.stats) == vars(ref.faults.stats)
+    assert state.stats.failovers == state.stats.degraded_ops == 1
 
 
+# The name is from before slice 7, when this path raised; it is kept so
+# the test's ID stays stable across the port's slices.
 def test_unported_paths_raise_not_implemented():
-    be = make_backend("batched", SimChipArray(2, 4), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        be.enable_reliability(object())
+    """The reliability tier is ported: ``enable_reliability`` attaches a
+    ``ReliabilityState``, and searches over a page with header damage
+    below the outer-code budget fall back, repair and equal the JAX
+    batched backend's (bitmaps, verdicts, stats).  An unknown backend
+    name still raises."""
+    from repro.reliability import ReliabilityState as JReliabilityState
+    from repro_torch.reliability import ReliabilityState
+
+    keys = _page_keys()
+    port, ref = _pair(keys)
+    for be in (port, ref):
+        be.chips.chips[0].inject_bit_errors(
+            0, 12, rng=np.random.default_rng(4), byte_region=(0, 64))
+    rel, jrel = ReliabilityState(), JReliabilityState()
+    port.enable_reliability(rel)
+    ref.enable_reliability(jrel)
+    assert port.reliability is rel
+    for p in (0, 5, 0):
+        cmd = Command.search(p, int(keys[p][3]))
+        got = port.search(cmd)
+        want = ref.search(JCommand.search(p, int(keys[p][3])))
+        np.testing.assert_array_equal(got.bitmap_words, want.bitmap_words)
+        assert (got.match_count, got.open_verdict) \
+            == (want.match_count, want.open_verdict)
+        assert got.match_count >= 1
+    assert vars(rel.stats) == vars(jrel.stats) and rel.stats.fallbacks == 1
+    _same_stats(port, ref)
     with pytest.raises(ValueError):
         make_backend("nonesuch", SimChipArray(2, 4), device="cpu")

@@ -6,7 +6,8 @@ flash timeline do the same float64 numpy arithmetic in the same order in
 both packages):
 
   * ``RunConfig`` — the event knobs validate as in the JAX package, the
-    presets build the same shapes, and the robustness knobs still raise;
+    presets build the same shapes, and each robustness knob constructs
+    and replays equal to the JAX package's event loop;
   * **bit-parity anchor** — ``RunConfig.event_serial()`` (one stream, zero
     inter-arrival, FIFO) replays bit-identically to ``mode="serial"`` on
     the scalar, batched and sharded backends, split and fused, eager and
@@ -23,6 +24,8 @@ both packages):
   * **backend independence** — the same event config gives the same
     latency arrays on the scalar, batched and sharded backends.
 """
+import dataclasses
+
 import jax  # noqa: F401  (both packages in one process, JAX on the CPU)
 import numpy as np
 import pytest
@@ -110,14 +113,83 @@ def test_runconfig_presets_match_jax():
         == ("event", 1, "zero", "fifo")
 
 
-@pytest.mark.parametrize("knob", [dict(reliability=object()),
-                                  dict(faults=object()),
+# The name is from before slice 7, when this path raised; it is kept so
+# the test's ID stays stable across the port's slices.
+@pytest.mark.parametrize("knob", [dict(reliability="noisy, vote_k 3"),
+                                  dict(faults="transient stall"),
                                   dict(deadline_ns=1e6),
                                   dict(hedge_quantile=0.9),
                                   dict(shed_capacity=4)])
 def test_event_robustness_knobs_still_raise(knob):
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        RunConfig(mode="event", **knob)
+    """The robustness tier is ported: each knob constructs in event mode
+    (the fields equal the JAX package's, and the ``reliable()`` and
+    ``chaos()`` presets build the same shapes), refuses what JAX refuses,
+    and an event replay with it equals the JAX package's event loop."""
+    from repro.reliability import FaultModel as JFaultModel
+    from repro.reliability import FaultSchedule as JFaultSchedule
+    from repro.reliability import ReliabilityPolicy as JReliabilityPolicy
+    from repro.reliability import ReliabilityState as JReliabilityState
+    from repro_torch.reliability import (FaultModel, FaultSchedule,
+                                         ReliabilityPolicy, ReliabilityState)
+
+    (field, value), = knob.items()
+    base = dict(mode="event", concurrency=4, scheduler="read_priority",
+                burst=8, seed=5, record_trace=True)
+    if field == "reliability":
+        fault = dict(seed=11, base_ber=0.0, sense_ber=1e-3)
+        kw = dict(base, reliability=ReliabilityState(
+            ReliabilityPolicy(vote_k=3), FaultModel(**fault)))
+        jkw = dict(base, reliability=JReliabilityState(
+            JReliabilityPolicy(vote_k=3), JFaultModel(**fault)))
+        for cfg, rel in ((RunConfig, kw[field]), (JRunConfig, jkw[field])):
+            with pytest.raises(ValueError):
+                cfg.reliable(None)
+            assert cfg.reliable(rel, burst=8).reliability is rel
+    elif field == "faults":
+        sched = dict(die=1, t_start_ms=0.05, dur_ms=0.5, seed=2)
+        kw = dict(vars(RunConfig.chaos(
+            FaultSchedule.transient_stall(**sched), burst=8, seed=5,
+            concurrency=4, record_trace=True)))
+        jkw = dict(vars(JRunConfig.chaos(
+            JFaultSchedule.transient_stall(**sched), burst=8, seed=5,
+            concurrency=4, record_trace=True)))
+        assert {k: v for k, v in kw.items() if k != "faults"} \
+            == {k: v for k, v in jkw.items() if k != "faults"}
+        assert dataclasses.asdict(kw["faults"]) \
+            == dataclasses.asdict(jkw["faults"])
+        for cfg in (RunConfig, JRunConfig):
+            with pytest.raises(ValueError):
+                cfg.chaos(None)
+    else:
+        kw = dict(base, **knob)
+        jkw = dict(base, **knob)
+        for bad in {"deadline_ns": (0, -1.0), "hedge_quantile": (0, 1.5),
+                    "shed_capacity": (-1, 1.5)}[field]:
+            for cfg in (RunConfig, JRunConfig):
+                with pytest.raises(ValueError):
+                    cfg(**dict(base, **{field: bad}))
+        if field == "shed_capacity":
+            kw.update(arrival="poisson", arrival_rate_qps=5e5, ncq_depth=8)
+            jkw.update(arrival="poisson", arrival_rate_qps=5e5, ncq_depth=8)
+    cfg = RunConfig(**kw)
+    assert {k: v for k, v in vars(cfg).items()
+            if k not in ("reliability", "faults")} \
+        == {k: v for k, v in vars(JRunConfig(**jkw)).items()
+            if k not in ("reliability", "faults")}
+    wl = generate(200, n_key_pages=8, read_ratio=0.8, alpha=0.9, seed=4)
+    jwl = jgenerate(200, n_key_pages=8, read_ratio=0.8, alpha=0.9, seed=4)
+    got = replay(wl, _mk("scalar"), cfg)
+    want = jreplay(jwl, _jmk(), JRunConfig(**jkw))
+    _same_event_report(got, want)
+    for f in ("timeouts", "retries", "backoff_waits", "hedges_won",
+              "shed_requests", "n_op_errors"):
+        assert getattr(got.faults, f) == getattr(want.faults, f), f
+    if field == "reliability":
+        np.testing.assert_array_equal(got.reliability.read_errors,
+                                      want.reliability.read_errors)
+        assert vars(got.reliability.stats) == vars(want.reliability.stats)
+    if field == "shed_capacity":
+        assert got.faults.shed_requests > 0
 
 
 # ------------------------------------------------------ bit-parity anchor

@@ -46,6 +46,9 @@ from repro_torch.configs import get_config, reduced_config
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.launch.serve import requests, serve
 from repro_torch.models.model import init_model
+from repro_torch.reliability import (DegradedReadError, FaultModel,
+                                     FaultSchedule, ReliabilityPolicy,
+                                     ReliabilityState, UncorrectableReadError)
 from repro_torch.serve.batching import ServeEngine
 from repro_torch.serve.kvcache import SimPagedKVCache
 from repro_torch.workload.ycsb import generate
@@ -1031,3 +1034,138 @@ def test_chip_axis_search_reprogram_between_flush_and_drain_on_card():
     assert [r.match_count for r in card[:5]] == [1, 1, 1, 0, 0]
     for a, b in zip(card, cpu):
         np.testing.assert_array_equal(a.bitmap_words, b.bitmap_words)
+
+
+# ----------------------------------------- reliability and device faults
+def _outcome(ticket):
+    """A response, or the name and page of the typed error it raised."""
+    try:
+        return ticket.result()
+    except (UncorrectableReadError, DegradedReadError) as e:
+        return (type(e).__name__, e.page_addr)
+
+
+def _same_outcome(a, b):
+    if isinstance(a, tuple) or isinstance(b, tuple):
+        assert a == b
+    else:
+        _same_response(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["batched", "sharded"])
+def test_reliable_flush_on_card_matches_cpu(name):
+    """Fault-injected pages at age 90 (every open verdict occurs) with
+    sense noise and 3-pass voting: a flush of every phase on the card
+    equals the same flush with device="cpu" — responses and typed errors,
+    ``ReliabilityStats``, backend counters — with one launch a phase."""
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(3)
+    keys = [rng.integers(1, 2**62, 300, dtype=np.uint64) for _ in range(32)]
+    results, stats = {}, {}
+    for device in (dev, "cpu"):
+        be = make_backend(name, SimChipArray(n_chips=16, pages_per_chip=4,
+                                             device_seed=5), device=device)
+        for p, k in enumerate(keys):
+            be.program_entries(p, k)
+        rel = ReliabilityState(ReliabilityPolicy(vote_k=3), FaultModel(
+            seed=11, base_ber=1e-4, retention_days=90.0, sense_ber=2e-4))
+        assert rel.install(be) > 0
+        tickets = [getattr(be, f"submit_{c.op.value}")(c)
+                   for c in _sharded_burst(keys, 32)]
+        before = dict(native.LAUNCHES)
+        be.flush()
+        torch.cuda.synchronize()
+        grew = {k: native.LAUNCHES[k] - before[k] for k in before}
+        if device == dev:
+            assert grew == {"sim_search": 1, "sim_plan": 1, "sim_lookup": 1,
+                            "sim_gather": 1, "sim_fused": 0,
+                            "flash_attention": 0}
+        results[device] = [_outcome(t) for t in tickets]
+        stats[device] = (dataclasses.asdict(be.stats),
+                         dataclasses.asdict(rel.stats))
+    assert stats[dev] == stats["cpu"]
+    verdicts = {r.search.open_verdict if hasattr(r, "search") else
+                getattr(r, "open_verdict", None) for r in results["cpu"]
+                if not isinstance(r, tuple)}
+    assert any(isinstance(r, tuple) for r in results["cpu"])
+    assert len(verdicts - {None}) >= 2
+    for a, b in zip(results[dev], results["cpu"]):
+        _same_outcome(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["batched", "sharded"])
+def test_raw_bitmaps_of_damaged_then_repaired_page_on_card(name):
+    """With no reliability tier the kernels return raw bitmaps: a search
+    flushed before a page is damaged resolves against its flush's clean
+    planes; one flushed after reads the damaged planes restaged in place,
+    and one after the repair the clean planes again — each equal to the
+    chip model's own search over the stored image at that point."""
+    dev = _cuda_or_skip()
+    keys = np.arange(1, 301, dtype=np.uint64) * 7
+    be = make_backend(name, SimChipArray(n_chips=4, pages_per_chip=4,
+                                         device_seed=2), device=dev)
+    for p in range(8):
+        be.program_entries(p, keys + p)
+    # Low-bit-masked queries match many slots, so any flipped bit shows.
+    cmds = [Command.search(p, int(keys[5] + p), 0xF) for p in range(8)]
+
+    def flush():
+        ts = [be.submit_search(c) for c in cmds]
+        be.flush()
+        return ts
+
+    def host():
+        return [be.chips.search(c).bitmap_words for c in cmds]
+
+    clean = host()
+    first = flush()                        # launched, not drained
+    chip, local = be.chips.route(5)
+    chip.inject_bit_errors(local, 400, rng=np.random.default_rng(1),
+                           byte_region=(64, 4096))
+    damaged = host()
+    assert not np.array_equal(damaged[5], clean[5])
+    second = flush()
+    chip._repair(chip.pages[local], local)
+    third = flush()
+    for tickets, want in ((first, clean), (second, damaged),
+                          (third, clean)):
+        for t, w in zip(tickets, want):
+            np.testing.assert_array_equal(t.result().bitmap_words, w)
+
+
+@pytest.mark.gpu
+def test_dead_chip_failover_on_card_matches_cpu():
+    """Chip 0 dead from t = 0 with two replicas under the chaos preset on
+    8 x 2 chips: the card's replay equals the CPU's (values, typed errors,
+    fault counters, launches) and the healthy replay's values, and its
+    failovers add launches over the replica rows to the healthy replay's."""
+    dev = _cuda_or_skip()
+    wl = generate(600, n_key_pages=32, read_ratio=0.8, alpha=0.9, seed=5)
+    reps = {}
+    for device, sched in ((dev, FaultSchedule.dead_chip(chip=0, seed=3)),
+                          ("cpu", FaultSchedule.dead_chip(chip=0, seed=3)),
+                          ("cpu", FaultSchedule.healthy(seed=3))):
+        be = ShardedSsdBackend.from_geometry(
+            channels=8, dies_per_channel=2, pages_per_chip=16,
+            device_seed=2, replicas=2, device=device)
+        before = dict(native.LAUNCHES)
+        rep = replay(wl, be, RunConfig.chaos(sched, burst=32, fused=True,
+                                             seed=3))
+        launches = {k: native.LAUNCHES[k] - before[k] for k in before}
+        reps[str(device), sched.outages != ()] = rep, launches
+    (card, card_l), (cpu, _) = reps[str(dev), True], reps["cpu", True]
+    healthy, _ = reps["cpu", False]
+    for f in ("read_values", "read_hits"):
+        np.testing.assert_array_equal(getattr(card, f), getattr(cpu, f))
+        np.testing.assert_array_equal(getattr(card, f), getattr(healthy, f))
+    assert dataclasses.asdict(card.faults).keys() \
+        == dataclasses.asdict(cpu.faults).keys()
+    for f in ("failovers", "degraded_ops", "remapped_blocks",
+              "replica_programs", "n_op_errors", "timeouts"):
+        assert getattr(card.faults, f) == getattr(cpu.faults, f), f
+    np.testing.assert_array_equal(card.faults.op_errors, cpu.faults.op_errors)
+    assert card.faults.failovers > 0 and card.faults.n_op_errors == 0
+    assert card.kernel_launches == cpu.kernel_launches \
+        == sum(card_l.values()) > healthy.kernel_launches

@@ -68,21 +68,78 @@ def test_split_and_fused_agree_with_serial_oracle(workload):
     assert reps[0].kernel_launches == 2 * reps[1].kernel_launches
 
 
+# The name is from before slice 7, when this path raised; it is kept so
+# the test's ID stays stable across the port's slices.
 @pytest.mark.parametrize("knob", [dict(mode="event"),
-                                  dict(reliability=object()),
-                                  dict(faults=object()),
+                                  dict(reliability="verified, age 45"),
+                                  dict(faults="dead chip 1"),
                                   dict(deadline_ns=1e6),
                                   dict(hedge_quantile=0.9),
                                   dict(shed_capacity=4)])
 def test_unported_knobs_refused_at_construction(knob):
+    """Every knob of the JAX package's ``RunConfig`` is ported: each
+    constructs and replays equal to JAX (values, hits, typed errors, the
+    reliability and fault counters).  What the JAX package refuses at
+    construction the port refuses too: the event frontend's robustness
+    knobs in serial mode, an object that is no ``FaultSchedule``."""
+    from repro.reliability import FaultModel as JFaultModel
+    from repro.reliability import FaultSchedule as JFaultSchedule
+    from repro.reliability import ReliabilityPolicy as JReliabilityPolicy
+    from repro.reliability import ReliabilityState as JReliabilityState
+    from repro_torch.reliability import (FaultModel, FaultSchedule,
+                                         ReliabilityPolicy, ReliabilityState)
+
+    wl = generate(40, n_key_pages=2, read_ratio=0.8, alpha=0.5, seed=3)
+    jwl = jgenerate(40, n_key_pages=2, read_ratio=0.8, alpha=0.5, seed=3)
     if knob == dict(mode="event"):
         # The event frontend is ported: the knob constructs and replays.
-        wl = generate(40, n_key_pages=2, read_ratio=0.8, alpha=0.5, seed=3)
         rep = replay(wl, SimChipArray(2, 4), RunConfig(**knob))
         assert rep.source == "event" and rep.read_hits[wl.ops == 0].all()
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        RunConfig(**knob)
+    (field, value), = knob.items()
+    name, kw, jkw = "batched", dict(fused=True), dict(fused=True)
+    if field == "reliability":
+        fault = dict(seed=11, base_ber=1e-4, retention_days=45.0,
+                     sense_ber=2e-4)
+        kw[field] = ReliabilityState(ReliabilityPolicy(vote_k=3),
+                                     FaultModel(**fault))
+        jkw[field] = JReliabilityState(JReliabilityPolicy(vote_k=3),
+                                       JFaultModel(**fault))
+    elif field == "faults":
+        name = "sharded"
+        kw[field] = FaultSchedule.dead_chip(chip=1, seed=3)
+        jkw[field] = JFaultSchedule.dead_chip(chip=1, seed=3)
+        with pytest.raises(ValueError):
+            RunConfig(faults=object())
+        with pytest.raises(ValueError):
+            JRunConfig(faults=object())
+    else:
+        for cfg in (RunConfig, JRunConfig):
+            with pytest.raises(ValueError, match="needs mode='event'"):
+                cfg(**knob)
+        kw.update(mode="event", **knob)
+        jkw.update(mode="event", **knob)
+    got = replay(wl, make_backend(name, SimChipArray(4, 16, 3),
+                                  device="cpu"), RunConfig(**kw))
+    want = jreplay(jwl, jmake_backend(name, JSimChipArray(4, 16, 3),
+                                      use_kernel=False), JRunConfig(**jkw))
+    for f in ("read_values", "read_hits"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    for section in ("reliability", "faults"):
+        a, b = getattr(got, section), getattr(want, section)
+        for f in ("read_errors", "op_errors"):
+            if hasattr(a, f):
+                np.testing.assert_array_equal(getattr(a, f),
+                                              getattr(b, f))
+        if section == "reliability" and a.stats is not None:
+            assert vars(a.stats) == vars(b.stats)
+    assert all(getattr(got.faults, f) == getattr(want.faults, f)
+               for f in ("failovers", "degraded_ops", "shed_requests",
+                         "replica_programs", "n_op_errors", "timeouts"))
+    if field == "faults":
+        # No replicas: the dead chip's reads fail typed, none wrong.
+        errs = got.faults.op_errors
+        assert errs.any() and not got.read_hits[errs].any()
 
 
 def test_write_buffer_knob_constructs_and_runs(workload):

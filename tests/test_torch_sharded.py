@@ -433,16 +433,48 @@ def test_replicas_program_every_copy_identical_to_jax(page_keys):
     _same_stats(port, ref)
 
 
+# The name is from before slice 7, when this path raised; it is kept so
+# the test's ID stays stable across the port's slices.
 def test_device_faults_and_timeline_faults_raise_slice_7():
+    """The device-fault and reliability hooks are ported: the fault state
+    attaches to the backend and its timeline, the reliability state to
+    the backend, and a stalled, reliable flush equals the JAX backend's
+    (responses, stats, burst latencies)."""
+    from repro.reliability import DeviceFaultState as JDeviceFaultState
+    from repro.reliability import FaultSchedule as JFaultSchedule
+    from repro.reliability import ReliabilityState as JReliabilityState
+    from repro_torch.reliability import (DeviceFaultState, FaultSchedule,
+                                         ReliabilityState)
+
     be = ShardedSsdBackend.from_geometry(channels=2, pages_per_chip=4,
                                          timeline=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        be.enable_device_faults(object())
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        be.timeline.attach_faults(object())
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        be.enable_reliability(object())
-    assert be.timeline.faults is None
+    ref = JSharded.from_geometry(channels=2, pages_per_chip=4,
+                                 timeline=True, use_kernel=False)
+    sched = dict(die=1, t_start_ms=0.0, dur_ms=0.5, seed=3)
+    state = DeviceFaultState(FaultSchedule.transient_stall(**sched))
+    be.enable_device_faults(state)
+    ref.enable_device_faults(JDeviceFaultState(
+        JFaultSchedule.transient_stall(**sched)))
+    assert be.faults is state and be.timeline.faults is state
+    rel = ReliabilityState()
+    be.enable_reliability(rel)
+    ref.enable_reliability(JReliabilityState())
+    assert be.reliability is rel
+    keys = np.arange(10, 30, dtype=np.uint64)
+    for b in (be, ref):
+        for p in range(4):
+            b.program_entries(p, keys + 100 * p)
+        b.timeline.reset()
+    cmds = [Command.search(p, int(keys[2] + 100 * p)) for p in range(4)]
+    tickets = [be.submit_search(c) for c in cmds]
+    jtickets = [ref.submit_search(_jcmd(c)) for c in cmds]
+    be.flush()
+    ref.flush()
+    for t, jt in zip(tickets, jtickets):
+        _same(t.result(), jt.result())
+    _same_stats(be, ref)
+    assert be.timeline.burst_latencies == ref.timeline.burst_latencies
+    assert be.timeline.burst_latencies[0] > 0.5e6   # queued behind the stall
 
 
 # -------------------------------------------------------------- timeline
