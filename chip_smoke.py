@@ -65,6 +65,17 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    order, failovers above 0 and each served by a launch over replica
    rows, reads that follow a bad-block remap served by the kernels from
    spare rows).
+   Then the contract auditor (phase 3e): ``python -m repro_torch.analysis
+   --check`` in-process on the card (the AST lint of ``src/repro_torch``,
+   the launch audit and the conservation audit on the batched and sharded
+   backends) with zero new findings and ``native.LAUNCHES`` moving once per
+   recorded entry in every flush phase, ``sim_search``, ``sim_plan``,
+   ``sim_lookup`` and ``sim_gather`` each launched; two doctored entries
+   caught on the card (a ``sim_search`` that launches twice trips SIM101,
+   a ``sim_gather`` that calls ``.item()`` on its output trips SIM102
+   through sync debug mode); and the conservation books (SIM201–SIM203)
+   of a full-size sharded YCSB-B split replay, 8 x 2 chips, on a metered
+   timeline, its reads equal to the oracle.
 4. The §V indexes on the ``batched`` backend, each path against a numpy
    oracle, with the first bursts of each kind also run on
    ``ScalarBackend`` over a copy of the stored pages and held equal
@@ -118,6 +129,10 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import database_index, quickstart  # noqa: E402
+from repro_torch.analysis import __main__ as auditor  # noqa: E402
+from repro_torch.analysis.conservation import (  # noqa: E402
+    audit_books, make_metered_timeline)
+from repro_torch.analysis.launch_audit import audit_backend  # noqa: E402
 from repro_torch.backend import (BatchedKernelBackend,  # noqa: E402
                                  ScalarBackend, ShardedSsdBackend,
                                  make_backend)
@@ -125,6 +140,7 @@ from repro_torch.backend import sharded as sharded_backend  # noqa: E402
 from repro_torch.backend.batched import PAGE_BLOCK  # noqa: E402
 from repro_torch.backend.planestore import next_pow2, padded_rows  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.backend import batched as batched_backend  # noqa: E402
 from repro_torch.convert import (chip_array_from_numpy,  # noqa: E402
                                  chip_array_to_numpy)
 from repro_torch.core.bitweaving import Column, RowCodec  # noqa: E402
@@ -138,6 +154,7 @@ from repro_torch.core.range_query import (RangePlan,  # noqa: E402
                                           approximate_range,
                                           evaluate_plan_on_pages,
                                           evaluate_plan_per_pass, exact_range)
+from repro_torch.flash.params import FlashParams  # noqa: E402
 from repro_torch.frontend import RunConfig, replay  # noqa: E402
 from repro_torch.index.btree import SimBTree  # noqa: E402
 from repro_torch.index.hashindex import SimHashIndex  # noqa: E402
@@ -2215,6 +2232,109 @@ def fault_phase(kp, n_ops) -> dict:
     return launches
 
 
+# ------------------------------------------- phase 3e: the contract auditor
+def auditor_cli_path() -> dict:
+    """``python -m repro_torch.analysis --check`` in-process on the card:
+    zero new findings (its SIM101 holds ``native.LAUNCHES`` to one launch
+    per recorded entry in every audited flush phase), and each of the four
+    SiM kernels of the flush paths launched."""
+    phases = []
+    rc, grew, wall_s = on_card(lambda: auditor.main(["--check"],
+                                                    phase_log=phases))
+    if rc != 0:
+        raise AssertionError(f"the auditor exited {rc}: new findings")
+    seen = set()
+    for ph in phases:
+        log(ph.format())
+        seen |= {k for k, v in ph.launches.items() if v}
+    if seen != set(REPLAY_KERNELS):
+        raise AssertionError(f"the launch audit launched {sorted(seen)}")
+    log(f"auditor --check on the card: wall {wall_s:.3f} s (lint, launch "
+        f"and conservation audits of both backends), 0 new findings, "
+        f"{len(phases)} flush phases each one launch a recorded entry; "
+        f"launches by kernel {grew}")
+    return grew
+
+
+def doctored_path() -> None:
+    """Two doctored entry points must be caught on the card: a
+    ``sim_search`` that launches twice (SIM101) and a ``sim_gather`` that
+    reads its output back (SIM102, through sync debug mode)."""
+    def caught(name, doctored, rule, slug, phases):
+        orig = getattr(batched_backend, name)
+        setattr(batched_backend, name, doctored(orig))
+        try:
+            t0 = time.perf_counter()
+            findings = audit_backend("batched")
+        finally:
+            setattr(batched_backend, name, orig)
+        got = {f.symbol for f in findings if (f.rule, f.slug) == (rule, slug)}
+        if not got >= phases:
+            raise AssertionError(f"doctored {name} not caught: "
+                                 f"{[f.format() for f in findings]}")
+        log(f"doctored {name} caught on the card in "
+            f"{time.perf_counter() - t0:.3f} s: {rule} {slug} in "
+            f"{sorted(got)}")
+
+    def doubled(orig):
+        def run(*args, **kw):
+            first = orig(*args, **kw)
+            orig(*args, **kw)
+            return first
+        return run
+
+    def with_item(orig):
+        def run(*args, **kw):
+            out, counts = orig(*args, **kw)
+            counts.sum().item()
+            return out, counts
+        return run
+
+    caught("sim_search", doubled, "SIM101", "kernel-count:sim_search",
+           {"search-cold", "search-warm", "search-after-program"})
+    caught("sim_gather", with_item, "SIM102", "host-sync:sim_gather",
+           {"gather"})
+    if torch.cuda.get_sync_debug_mode() != 0:
+        raise AssertionError("sync debug mode left on after the audit")
+
+
+def conservation_full_path(kp, n_ops) -> dict:
+    """SIM201–SIM203 over the full-size sharded YCSB-B split replay (8 x 2
+    chips, as phase 3b) on a metered timeline, a run of its own: reads
+    equal the oracle, and the busy-time, energy and byte books balance."""
+    label, wl, config = ycsb_paths(kp, n_ops)[0]
+    tl = make_metered_timeline(params=FlashParams(
+        channels=SSD_CHANNELS, dies_per_channel=SSD_DIES))
+    rep, grew, backend, _ = run_replay(
+        f"metered sharded {label}", wl, kp, SSD_CHANNELS * SSD_DIES, config,
+        TimedSharded, channels=SSD_CHANNELS, dies_per_channel=SSD_DIES,
+        timeline=tl)
+    check_replay(label, wl, rep, grew, config, kp)
+    t0 = time.perf_counter()
+    findings = audit_books("sharded", rep, backend, tl)
+    audit_s = time.perf_counter() - t0
+    if findings:
+        raise AssertionError("conservation books do not balance: "
+                             f"{[f.format() for f in findings]}")
+    lines = {e.line.split(":")[0] for e in tl.events}
+    log(f"conservation, metered sharded {label} [{kp} key pages, "
+        f"{len(wl.ops)} ops, 8 x 2 chips]: {len(tl.events)} metered "
+        f"intervals on {len({e.line for e in tl.events})} lines "
+        f"({sorted(lines)}), {tl.match_queries} match queries; busy time, "
+        f"energy ({tl.sim.energy.total_pj:.1f} pJ) and bytes (internal "
+        f"{tl.sim.stats.internal_bytes}, PCIe {tl.sim.stats.pcie_bytes}) "
+        f"balance, checked in {audit_s:.3f} s; reads equal the oracle")
+    del backend
+    return grew
+
+
+def auditor_phase(kp, n_ops) -> dict:
+    launches = auditor_cli_path()
+    doctored_path()
+    add_launches(launches, conservation_full_path(kp, n_ops))
+    return launches
+
+
 # ------------------------------------------------------- phase 4: indexes
 # Each index path compares its first bursts of each kind against
 # ScalarBackend, response by response.
@@ -2876,6 +2996,7 @@ def main(argv=None) -> int:
     for grew in (sharded_path(args.key_pages, args.n_ops, reports),
                  reliability_phase(args.key_pages, args.n_ops),
                  fault_phase(args.key_pages, args.n_ops),
+                 auditor_phase(args.key_pages, args.n_ops),
                  index_phase(args.key_pages), quickstart_path(),
                  serve_path(dev), reduced_serve_path(dev)):
         for k in launches:

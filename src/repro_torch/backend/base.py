@@ -32,6 +32,31 @@ Result delivery is *lazy*: ``flush()`` dispatches the launches and attaches
 a ``LazyResultBatch`` to each ticket; the device->host copy and host tail
 run at the first ``result()`` call of a burst, so the card works on burst k
 while the host stages burst k+1.
+
+Protocol invariants (enforced by ``repro_torch.analysis``; rule IDs in
+brackets):
+
+  I1 [SIM001, SIM009]  Ticket discipline.  Every ``submit_*`` return value
+      is kept, and a ``.result()`` reached with more than one command
+      pending is dominated by a ``flush()``.  The eager ``search``/
+      ``gather``/``lookup``/``plan`` wrappers are the documented immediate
+      mode: one straight-line submit whose ``Ticket.result()`` flushes.
+  I2 [SIM002]  Observer completeness.  Every mutation of a stored page
+      image notifies the write observers, and every arena-plane mutation
+      (``PlaneStore._lo``/``_hi``/...) updates the staging bookkeeping.
+  I3 [SIM003]  No host sync in the hot path.  ``flush``/``_flush_*`` and
+      the kernel ``ops.py`` wrappers never force a device->host transfer
+      (``.item()``, ``.cpu()``, ``tensor_to_words``, a synchronize) on a
+      launch output; the host tail lives in the deferred closures.
+  I4 [SIM004]  Counter integrity.  ``BackendStats`` fields move only
+      inside the accounting helpers: flush phases, submit/resolve paths
+      and deferred tails.
+  I5 [SIM007]  Unit suffixes.  ``_ns``, ``_pj``, ``_bytes`` and ``_prob``
+      name a quantity's dimension; values flow only between names of one
+      dimension.
+  I6 [SIM008]  Seed provenance.  Every RNG construction (``default_rng``,
+      ``SeedSequence``, ``torch.Generator().manual_seed(x)``, ...) and every
+      torch draw's ``generator=`` traces to a literal or a seed-named value.
 """
 from __future__ import annotations
 

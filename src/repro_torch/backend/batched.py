@@ -332,16 +332,18 @@ def resolve_gather_responses(chips, gathers, out, parity_snap,
 # Row-stacked launches, shared with the sharded backend: row i of a lookup
 # burst reads key row i and value row i of the arena in place, row i of a
 # gather burst reads its page's row.  Each issues ONE index upload and ONE
-# launch, bumps ``be.stats`` and defers the host tail to the first
-# ``result()`` of the burst.  ``block`` is the backend's padded row block;
+# launch and defers the host tail to the first ``result()`` of the burst;
+# the calling ``_flush_*`` phase counts the launch in ``be.stats`` (the
+# tail adds the result bytes).  ``block`` is the backend's padded row block;
 # ``rel`` is the reliability tier the tail finalizes with (None for raw
 # responses) and ``opens`` the flush's page opens, both captured into the
 # tail; ``verdicts`` are a sharded failover burst's latch verdicts.
 # ---------------------------------------------------------------------------
 
 def launch_lookups(be, lookups, block: int, rel, opens,
-                   verdicts=None) -> None:
-    """Fused read burst: search + slot select + value gather, 1 launch."""
+                   verdicts=None) -> int:
+    """Fused read burst: search + slot select + value gather, 1 launch.
+    Returns the unique key and value pages the launch read."""
     key_addrs = [cmd.page_addr for cmd, _ in lookups]
     val_addrs = [cmd.value_page for cmd, _ in lookups]
     k_rows = be.store.rows_for(key_addrs)
@@ -362,10 +364,6 @@ def launch_lookups(be, lookups, block: int, rel, opens,
         words_to_tensor(m, be.device), ids, seeds, randomized=True,
         key_rows=key_idx, value_rows=value_idx)
 
-    be.stats.kernel_launches += 1
-    be.stats.lookups += n
-    be.stats.staged_pages += len(set(key_addrs) | set(val_addrs))
-    be.stats.staged_queries += n
     snap = snapshot_parities(be.chips, val_addrs)
 
     def tail(bm=bm, val=val, slots=slots, lookups=lookups, n=n, snap=snap,
@@ -375,6 +373,7 @@ def launch_lookups(be, lookups, block: int, rel, opens,
             tensor_to_words(val)[:n], slots.cpu().numpy()[:n], snap,
             rel, opens, verdicts)
     be._defer_all(lookups, tail)
+    return len(set(key_addrs) | set(val_addrs))
 
 
 def launch_gathers(be, gathers, block: int, rel, opens) -> None:
@@ -391,8 +390,6 @@ def launch_gathers(be, gathers, block: int, rel, opens) -> None:
     out, _counts = sim_gather(lo, hi, words_to_tensor(bm, be.device),
                               max_out=CHUNKS_PER_PAGE,
                               rows=row_idx)    # (Npad, 64, 16)
-    be.stats.kernel_launches += 1
-    be.stats.gathers += n
     snap = snapshot_parities(be.chips, addrs)
 
     def tail(out=out, gathers=gathers, n=n, snap=snap, rel=rel,
@@ -487,11 +484,9 @@ class BatchedKernelBackend(MatchBackend):
         if plans:
             self._flush_plans(plans, opens)
         if lookups:
-            launch_lookups(self, lookups, LOOKUP_BLOCK, self.reliability,
-                           opens)
+            self._flush_lookups(lookups, opens)
         if gathers:
-            launch_gathers(self, gathers, PAGE_BLOCK, self.reliability,
-                           opens)
+            self._flush_gathers(gathers, opens)
         # The plane store is the only source of host->device page traffic.
         self.stats.staged_bytes = self.store.staged_bytes
 
@@ -548,6 +543,20 @@ class BatchedKernelBackend(MatchBackend):
                 self.chips, searches, placements, tensor_to_words(out),
                 rel, opens)
         self._defer_all(searches, tail)
+
+    # ------------------------------------------------------ lookups, gathers
+    def _flush_lookups(self, lookups, opens) -> None:
+        staged_pages = launch_lookups(self, lookups, LOOKUP_BLOCK,
+                                      self.reliability, opens)
+        self.stats.kernel_launches += 1
+        self.stats.lookups += len(lookups)
+        self.stats.staged_pages += staged_pages
+        self.stats.staged_queries += len(lookups)
+
+    def _flush_gathers(self, gathers, opens) -> None:
+        launch_gathers(self, gathers, PAGE_BLOCK, self.reliability, opens)
+        self.stats.kernel_launches += 1
+        self.stats.gathers += len(gathers)
 
     # ---------------------------------------------------------------- plans
     def _flush_plans(self, plans, opens) -> None:

@@ -648,8 +648,12 @@ class ShardedSsdBackend(MatchBackend):
                        verdicts=None) -> None:
         """Row-stacked fused burst across every chip (the batched backend's
         launch); each side of a lookup charges its own chip's burst."""
-        launch_lookups(self, lookups, SHARDED_LOOKUP_BLOCK, rel, opens,
-                       verdicts)
+        staged_pages = launch_lookups(self, lookups, SHARDED_LOOKUP_BLOCK,
+                                      rel, opens, verdicts)
+        self.stats.kernel_launches += 1
+        self.stats.lookups += len(lookups)
+        self.stats.staged_pages += staged_pages
+        self.stats.staged_queries += len(lookups)
         vf = self._vote_factor
         # Key pages re-sense vote_k times for majority voting; value pages
         # sense once (the chunk read is verified by parity, not by vote).
@@ -678,6 +682,8 @@ class ShardedSsdBackend(MatchBackend):
         launch), charged to each page's chip.  A gather opens nothing, so
         a failover burst's ``verdicts`` are all None."""
         launch_gathers(self, gathers, SHARDED_PAGE_BLOCK, rel, opens)
+        self.stats.kernel_launches += 1
+        self.stats.gathers += len(gathers)
         for cmd, _ in gathers:
             c, _local = self.decompose(cmd.page_addr)
             k = int(popcount_words(

@@ -165,7 +165,10 @@ def test_port_never_imports_jax_or_repro(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.frontend, repro_torch.convert, "
-            "repro_torch.backend, repro_torch.kernels.native; "
+            "repro_torch.backend, repro_torch.kernels.native, "
+            "repro_torch.analysis.__main__, "
+            "repro_torch.analysis.launch_audit, "
+            "repro_torch.analysis.conservation; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

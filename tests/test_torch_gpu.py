@@ -16,6 +16,10 @@ import pytest
 import torch
 
 from repro_torch import database_index
+import repro_torch.backend.batched as batched_mod
+import repro_torch.backend.sharded as sharded_mod
+from repro_torch.analysis.conservation import run_conservation
+from repro_torch.analysis.launch_audit import audit_backend
 from repro_torch.backend import ShardedSsdBackend, make_backend
 from repro_torch.core.bitweaving import Column, RowCodec
 from repro_torch.core.commands import Command
@@ -1169,3 +1173,63 @@ def test_dead_chip_failover_on_card_matches_cpu():
     assert card.faults.failovers > 0 and card.faults.n_op_errors == 0
     assert card.kernel_launches == cpu.kernel_launches \
         == sum(card_l.values()) > healthy.kernel_launches
+
+
+# ------------------------------------------------------ the contract auditor
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["batched", "sharded"])
+def test_launch_audit_clean_on_card(kind):
+    """Both backends' launch audits are clean on the card (their SIM101
+    holds ``native.LAUNCHES`` to one launch per recorded entry in every
+    flush phase), and the four SiM kernels were launched."""
+    _cuda_or_skip()
+    log = []
+    findings = audit_backend(kind, phase_log=log)
+    assert findings == [], [f.format() for f in findings]
+    seen = set()
+    for ph in log:
+        seen |= {k for k, v in ph.launches.items() if v}
+    assert seen == {"sim_search", "sim_plan", "sim_lookup", "sim_gather"}
+
+
+@pytest.mark.gpu
+def test_conservation_audit_clean_on_card():
+    _cuda_or_skip()
+    findings = run_conservation()
+    assert findings == [], [f.format() for f in findings]
+
+
+@pytest.mark.gpu
+def test_sync_debug_trip_on_card(monkeypatch):
+    """A gather entry that reads a value back under sync debug mode is a
+    SIM102 finding; the mode is back to its default afterwards."""
+    _cuda_or_skip()
+    orig = batched_mod.sim_gather
+
+    def with_item(*args, **kwargs):
+        out, counts = orig(*args, **kwargs)
+        counts.sum().item()
+        return out, counts
+
+    monkeypatch.setattr(batched_mod, "sim_gather", with_item)
+    findings = audit_backend("batched")
+    assert ("SIM102", "gather", "host-sync:sim_gather") in \
+        {(f.rule, f.symbol, f.slug) for f in findings}
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.gpu
+def test_double_launch_trips_sim101_on_card(monkeypatch):
+    _cuda_or_skip()
+    orig = sharded_mod.sim_search_chips
+
+    def doubled(*args, **kwargs):
+        first = orig(*args, **kwargs)
+        orig(*args, **kwargs)
+        return first
+
+    monkeypatch.setattr(sharded_mod, "sim_search_chips", doubled)
+    findings = audit_backend("sharded")
+    bad = {f.symbol for f in findings
+           if f.slug == "kernel-count:sim_search_chips"}
+    assert bad >= {"search-cold", "search-warm"}
