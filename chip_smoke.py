@@ -99,11 +99,32 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    and first-token logits held against the plain attention.  Then the
    launcher's default, the reduced qwen3-4b (16-wide heads), served on the
    card through the kernel, with the same checks but the gather.
-7. One JSON line of the kernels, their launches and times.
-8. The card's ``nvidia-smi`` name and power limit, then the last line:
+7. Training (``repro_torch.launch.train.train``).  olmo-1b at full width
+   and depth (16 layers, d_model 2048, 1.18 B bf16 parameters, float32
+   moments, remat ``block``), batch 8 x 512 tokens, 5 steps: every loss
+   finite, the flash attention kernel launched exactly twice a layer a step
+   (the forward and the remat recompute; its gradient is the plain
+   ``attend``'s VJP, no launch), step time, tokens/s and peak memory; then
+   step 0's loss and every parameter's gradient once more through the
+   kernel and through the plain attention (a comparison, not the path):
+   all finite, ``wq``/``wk``/``wv`` non-zero in every layer, loss and each
+   leaf within 5e-2 relative L2.  The forward kernel and its backward (the
+   ``attend`` VJP) are timed at this shape beside SDPA's.  Then the
+   launcher's default, the reduced olmo-1b, 30 steps: the loss falls by
+   more than 0.3 (the JAX test's bound).  Then crash and bitwise resume:
+   olmo-1b at full width with ``n_layers`` cut to 2 (a full-depth
+   checkpoint is about 14 GB of npz), 20 steps with a checkpoint every 10,
+   straight through and crashed at step 12 then restarted; steps 10-19's
+   losses bitwise equal, under ``torch.use_deterministic_algorithms`` and
+   ``CUBLAS_WORKSPACE_CONFIG``, set in this phase only and restored.
+   Then the int8 error-feedback step, 2 pods stacked, 15 steps of reduced
+   olmo-1b in float32 beside the uncompressed step, within the JAX test's
+   bounds.
+8. One JSON line of the kernels, their launches and times.
+9. The card's ``nvidia-smi`` name and power limit, then the last line:
    ``{"ok": true, "device": {...}}``.
 
-The launch counts are set to 0 just before each path of phases 3–6 and read
+The launch counts are set to 0 just before each path of phases 3–7 and read
 just after it; they show which kernels ran on that path. The replay scale
 is 20% of the paper's 650 MiB index: 16,384 key pages and 16,384 value
 pages of 4 KiB on 16 chips, for every replay path, the sharded and reliable
@@ -118,6 +139,8 @@ import argparse
 import bisect
 import dataclasses
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -139,7 +162,7 @@ from repro_torch.backend import (BatchedKernelBackend,  # noqa: E402
 from repro_torch.backend import sharded as sharded_backend  # noqa: E402
 from repro_torch.backend.batched import PAGE_BLOCK  # noqa: E402
 from repro_torch.backend.planestore import next_pow2, padded_rows  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.backend import batched as batched_backend  # noqa: E402
 from repro_torch.convert import (chip_array_from_numpy,  # noqa: E402
                                  chip_array_to_numpy)
@@ -186,12 +209,23 @@ from repro_torch.kernels.timing import (ARENA_ROWS,  # noqa: E402
                                         device_ms, planted_lookup_queries,
                                         random_arena, row_sets)
 from repro_torch.launch.serve import requests, serve  # noqa: E402
+from repro_torch.launch.train import train  # noqa: E402
+from repro_torch.convert import nest, param_tree  # noqa: E402
+from repro_torch.models.layers import plain_attention  # noqa: E402
+from repro_torch.models.model import (DenseLM, init_model,  # noqa: E402
+                                      prefill)
+from repro_torch.parallel.compression import (  # noqa: E402
+    init_error_state, make_compressed_train_step)
+from repro_torch.train.data import DataConfig, batch_at_step  # noqa: E402
+from repro_torch.train.optimizer import (AdamWConfig,  # noqa: E402
+                                         adamw_update, init_opt_state)
+from repro_torch.train.train_step import (make_train_step,  # noqa: E402
+                                          value_and_grad)
 from repro_torch.reliability import (DegradedReadError,  # noqa: E402
                                      FaultModel, FaultSchedule,
                                      ReliabilityPolicy, ReliabilityState,
                                      UncorrectableReadError, match_bitmap,
                                      plan_bitmap)
-from repro_torch.models.model import prefill  # noqa: E402
 from repro_torch.serve.batching import Request, ServeEngine  # noqa: E402
 from repro_torch.serve.kvcache import PagedStats, SimPagedKVCache  # noqa: E402
 from repro_torch.workload.ycsb import KEYS_PER_PAGE, generate  # noqa: E402
@@ -859,7 +893,9 @@ ATTN_CASES = [
      for dt in (torch.float32, torch.bfloat16)
      for name, kw in (("causal", dict(causal=True)),
                       ("non-causal", dict(causal=False)),
-                      ("window 128", dict(causal=True, window=128)))]
+                      ("window 128", dict(causal=True, window=128)))] + [
+    ("olmo-1b training forward", torch.bfloat16,
+     (8, 512, 512, 16, 16, 128), dict(causal=True))]
 # Timed for the kernels line: a decode step of the serve path, whose
 # positions run from 4 to 27 in a 128-slot cache.
 ATTN_TIMED = ("qwen3-4b decode, q_offset 16", torch.bfloat16,
@@ -2549,7 +2585,6 @@ def btree_path(n_leaves) -> dict:
         pos = np.minimum(np.searchsorted(sk, q), len(sk) - 1)
         return [int(sv[p]) if sk[p] == k else None for k, p in zip(q, pos)]
 
-    expect = {}
     for b in range(64):
         present = rng.choice(sk, 48, replace=False)
         absent = rng.integers(1, 2**64 - 1, 16, dtype=np.uint64)
@@ -2568,10 +2603,10 @@ def btree_path(n_leaves) -> dict:
         raise AssertionError("keys below the smallest key hit")
     wide = int(WIDE_FRACTION * len(sk))
     ranges = []
-    for r in range(256):
+    for _ in range(256):
         i = int(rng.integers(0, len(sk) - MAX_SCAN))
         ranges.append((i, i + int(rng.integers(1, MAX_SCAN + 1)), "short"))
-    for r in range(4):
+    for _ in range(4):
         i = int(rng.integers(0, len(sk) - wide))
         ranges.append((i, i + wide, "wide"))
     leaves_of = {"short": [], "wide": []}
@@ -2963,6 +2998,311 @@ def reduced_serve_path(dev) -> dict:
     return grew
 
 
+# ------------------------------------------------------ phase 7: training
+TRAIN_ARCH = "olmo-1b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 5
+TRAIN_LR = 3e-4     # AdamW's default; at 3e-3 the full model's loss rises
+# Tolerance of step 0's loss and of each parameter's gradient through the
+# kernel against the same step through the plain attention: relative L2
+# error.  The backward is the same ``attend`` VJP in both, but at
+# activations that differ where the kernel's bf16 attention output rounds
+# otherwise than the plain one's (the serve path's bound, LOGITS_REL_TOL).
+GRAD_REL_TOL = LOGITS_REL_TOL
+RESUME_LAYERS = 2
+CKPT_ROOT = Path(__file__).resolve().parent / "build" / "train_ckpt"
+
+
+def launches_per_step(cfg) -> int:
+    """Flash attention launches of one train step: one a layer in the
+    forward and, under remat, one a layer when the backward recomputes the
+    block; the backward itself (the ``attend`` VJP) launches nothing."""
+    return cfg.n_layers * (1 if cfg.remat == "none" else 2)
+
+
+def step0_gradients(cfg, dev) -> float:
+    """Step 0 of the full run once more, through the kernel and through the
+    plain attention (this run's launches are a comparison, not the path):
+    every gradient finite, wq/wk/wv non-zero in every layer, the loss and
+    each leaf within GRAD_REL_TOL.  Returns the worst relative error."""
+    model = init_model(cfg, seed=0, device=dev)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=0)
+    b = batch_at_step(data, 0, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (loss, _), grads = value_and_grad(model, b["tokens"], b["labels"])
+    torch.cuda.synchronize()
+    grad_ms = 1e3 * (time.perf_counter() - t0)
+    for name, g in grads.items():
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"train: non-finite gradient of {name}")
+    for name in ("wq", "wk", "wv"):
+        per_layer = grads[f"blocks.attn.{name}"].float().abs().sum(
+            dim=(1, 2, 3))
+        if not (per_layer > 0).all():
+            raise AssertionError(f"train: a zero {name} gradient: "
+                                 f"{per_layer.tolist()}")
+    (ploss, _), pgrads = value_and_grad(model, b["tokens"], b["labels"],
+                                        attention=plain_attention)
+    worst = abs(float(loss) - float(ploss)) / abs(float(ploss))
+    where = "loss"
+    for name, g in grads.items():
+        ref = pgrads[name].float()
+        rel = float((g.float() - ref).norm() / ref.norm())
+        if rel > worst:
+            worst, where = rel, name
+    log(f"train check: step 0 through the kernel vs the plain attention: "
+        f"loss {float(loss):.6f} vs {float(ploss):.6f}; {len(grads)} "
+        f"gradients finite, wq/wk/wv non-zero in all {cfg.n_layers} layers; "
+        f"worst rel L2 err {worst:.3e} ({where}), tol {GRAD_REL_TOL}")
+    if worst > GRAD_REL_TOL:
+        raise AssertionError(f"train: step 0 differs from the plain "
+                             f"attention by {worst:.3e} ({where})")
+    del pgrads
+    # Where a step's time goes, host clock ending in a synchronize: the
+    # loss and gradient under each remat policy, then one AdamW update.
+    times = {f"value_and_grad, remat {cfg.remat}": grad_ms}
+    for remat in ("none", "full"):
+        del grads
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, grads = value_and_grad(model, b["tokens"], b["labels"],
+                                  remat=remat)
+        torch.cuda.synchronize()
+        times[f"value_and_grad, remat {remat}"] = \
+            1e3 * (time.perf_counter() - t0)
+    opt_cfg = AdamWConfig(moment_dtype=cfg.optimizer_dtype)
+    state = init_opt_state(param_tree(model), opt_cfg)
+    grads = nest(grads)
+    for i in range(2):          # the first update's time holds allocations
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        adamw_update(grads, state, param_tree(model), opt_cfg)
+        torch.cuda.synchronize()
+        times[f"adamw_update {i}"] = 1e3 * (time.perf_counter() - t0)
+    log("train step parts (ms, host clock to a synchronize): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in times.items()))
+    return worst
+
+
+def profile_steps(dev) -> None:
+    """Device time by kernel over two full-size steps (``torch.profiler``,
+    after one unprofiled step), against their wall time: the device's
+    busy share of a step."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = get_config(TRAIN_ARCH)
+    model = init_model(cfg, seed=0, device=dev)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, moment_dtype=cfg.optimizer_dtype)
+    state = init_opt_state(param_tree(model), opt_cfg)
+    step = make_train_step(cfg, opt_cfg)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=0)
+    model, state, m = step(model, state, batch_at_step(data, 0, device=dev))
+    float(m["loss"])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for s in (1, 2):
+            model, state, m = step(model, state,
+                                   batch_at_step(data, s, device=dev))
+            float(m["loss"])
+        wall_ms = 1e3 * (time.perf_counter() - t0) / 2
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 2e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    log(f"train profile (olmo-1b full, 2 steps under torch.profiler): wall "
+        f"{wall_ms:.3f} ms a step, device kernels {busy_ms:.3f} ms a step "
+        f"(busy {busy_ms / wall_ms:.3f}); top kernels, ms a step: " +
+        "; ".join(f"{e.key[:60]} {e.self_device_time_total / 2e3:.3f} "
+                  f"({e.count // 2} calls)" for e in top))
+
+
+def attention_backward_times(dev) -> None:
+    """The gradient of one attention at the training shape: the kernel's
+    Function (forward launch, then the ``attend`` VJP recomputed) beside
+    SDPA's forward and backward (timed only; the port never calls it)."""
+    shape = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 16, 128)
+    q, k, v = (t.requires_grad_() for t in attn_inputs(
+        dev, torch.bfloat16, shape, 99))
+    g = torch.ones_like(q)
+    kw = dict(causal=True)
+    fa = device_ms(lambda: torch.autograd.grad(
+        flash_attention(q, k, v, **kw), (q, k, v), g), 20)
+    bwd = device_ms(lambda: torch.autograd.grad(
+        plain_attention(q, k, v, **kw), (q, k, v), g), 20)
+    lib = device_ms(lambda: torch.autograd.grad(
+        sdpa(q, k, v, shape, kw), (q, k, v), g.transpose(1, 2)), 20)
+    log(f"attention gradient [olmo-1b training, {shape}, bf16, causal]: "
+        f"kernel forward + attend VJP {fa:.6f} ms; the attend forward + VJP "
+        f"alone {bwd:.6f} ms; SDPA forward + backward {lib:.6f} ms")
+
+
+def full_train_path(dev, smi) -> dict:
+    """olmo-1b at full width and depth through ``train(reduced=False)``,
+    its launch counts set to 0 just before and read just after."""
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launches()
+    t0 = time.perf_counter()
+    run = train(TRAIN_ARCH, steps=TRAIN_STEPS, reduced=False,
+                batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, lr=TRAIN_LR,
+                verbose=False)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    grew = dict(native.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = TRAIN_STEPS * launches_per_step(cfg)
+    if grew["flash_attention"] != want or sum(grew.values()) != want:
+        raise AssertionError(f"train: launches {grew}, expected {want} "
+                             f"flash_attention")
+    if not all(np.isfinite(run.losses)) or run.steps_run != TRAIN_STEPS:
+        raise AssertionError(f"train: losses {run.losses}")
+    steady = sorted(run.step_s[1:])[len(run.step_s[1:]) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_params = sum(p.numel() for p in DenseLM(
+        cfg, torch.device("meta")).parameters())
+    log(f"train {TRAIN_ARCH} (full: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {n_params} parameters, {cfg.dtype}, moments "
+        f"{cfg.optimizer_dtype}, remat {cfg.remat}), batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}: wall {wall_s:.3f} s (init and {TRAIN_STEPS} steps); "
+        f"step ms {[round(1e3 * t, 3) for t in run.step_s]}, median of "
+        f"steps 1-{TRAIN_STEPS - 1} {1e3 * steady:.3f} ms, "
+        f"{tokens / steady:.1f} tokens/s; losses {run.losses}; launches "
+        f"{grew} ({launches_per_step(cfg)} a step); peak device memory "
+        f"{peak} bytes; card {smi}")
+    step0_gradients(cfg, dev)
+    attention_backward_times(dev)
+    profile_steps(dev)
+    return grew
+
+
+def reduced_train_path() -> dict:
+    """``python -m repro_torch.launch.train --arch olmo-1b`` at the JAX
+    test's settings on the card: the loss must fall by more than 0.3."""
+    torch.cuda.synchronize()
+    native.reset_launches()
+    run = train(TRAIN_ARCH, steps=30, batch=8, seq_len=32, lr=3e-3,
+                verbose=False)
+    torch.cuda.synchronize()
+    grew = dict(native.LAUNCHES)
+    cfg = reduced_config(get_config(TRAIN_ARCH))
+    early, late = np.mean(run.losses[:5]), np.mean(run.losses[-5:])
+    want = 30 * launches_per_step(cfg)
+    if grew["flash_attention"] != want or sum(grew.values()) != want:
+        raise AssertionError(f"reduced train: launches {grew}, expected "
+                             f"{want}")
+    if not late < early - 0.3:
+        raise AssertionError(f"reduced train: loss {early} -> {late}")
+    log(f"reduced train {TRAIN_ARCH} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}) on the card: 30 steps, mean loss of the first five "
+        f"{early:.4f}, of the last five {late:.4f} (fell "
+        f"{early - late:.4f} > 0.3); launches {grew}")
+    return grew
+
+
+def resume_path() -> dict:
+    """Crash and bitwise resume at full width, ``n_layers`` cut to
+    RESUME_LAYERS: the run straight through and the run crashed at step 12
+    and restarted from its step-10 checkpoint give bitwise equal losses
+    for steps 10-19.  Deterministic algorithms and the cuBLAS workspace
+    setting they require are switched on here and restored after."""
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=RESUME_LAYERS)
+    kw = dict(steps=20, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, lr=1e-3,
+              verbose=False, ckpt_every=10)
+    env_before = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    det_before = torch.are_deterministic_algorithms_enabled()
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    torch.cuda.synchronize()
+    native.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True)
+        full = train(cfg, ckpt_root=CKPT_ROOT / "a", **kw)
+        try:
+            train(cfg, ckpt_root=CKPT_ROOT / "b", crash_at=12, **kw)
+        except RuntimeError as err:
+            if "injected failure at step 12" not in str(err):
+                raise
+        else:
+            raise AssertionError("resume: the injected crash did not fire")
+        resumed = train(cfg, ckpt_root=CKPT_ROOT / "b", **kw)
+    finally:
+        torch.use_deterministic_algorithms(det_before)
+        if env_before is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env_before
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    torch.cuda.synchronize()
+    grew = dict(native.LAUNCHES)
+    want = (20 + 12 + 10) * launches_per_step(cfg)
+    if grew["flash_attention"] != want or sum(grew.values()) != want:
+        raise AssertionError(f"resume: launches {grew}, expected {want}")
+    if resumed.resumed_from != 10 or full.losses[10:] != resumed.losses:
+        raise AssertionError(f"resume: from {resumed.resumed_from}; losses "
+                             f"{full.losses[10:]} vs {resumed.losses}")
+    log(f"resume ({TRAIN_ARCH} full width, {RESUME_LAYERS} layers, batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}): crashed at step 12, resumed from "
+        f"step 10, steps 10-19 bitwise equal ({resumed.losses[0]!r} ... "
+        f"{resumed.losses[-1]!r}); {time.perf_counter() - t0:.3f} s with "
+        f"four checkpoints; launches {grew}")
+    return grew
+
+
+def compressed_path(dev) -> dict:
+    """The int8 error-feedback step (2 pods, stacked) beside the exact
+    step: reduced olmo-1b in float32, remat none, fsdp off, 15 steps, the
+    configuration and bounds of the JAX ``tests/test_distribution.py``."""
+    cfg = dataclasses.replace(reduced_config(get_config(TRAIN_ARCH)),
+                              dtype="float32", remat="none", fsdp=False)
+    opt_cfg = AdamWConfig(lr=5e-3, warmup_steps=1)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=8,
+                      seed=1)
+    mc, mr = (init_model(cfg, seed=0, device=dev) for _ in range(2))
+    oc = init_opt_state(param_tree(mc), opt_cfg)
+    orr = init_opt_state(param_tree(mr), opt_cfg)
+    err = init_error_state(param_tree(mc), n_pods=2)
+    step_c = make_compressed_train_step(cfg, opt_cfg)
+    step_r = make_train_step(cfg, opt_cfg)
+    torch.cuda.synchronize()
+    native.reset_launches()
+    losses, ref = [], []
+    for s in range(15):
+        batch = batch_at_step(data, s, device=dev)
+        mc, oc, err, m = step_c(mc, oc, err, batch)
+        mr, orr, r = step_r(mr, orr, batch)
+        losses.append(float(m["loss"]))
+        ref.append(float(r["loss"]))
+    torch.cuda.synchronize()
+    grew = dict(native.LAUNCHES)
+    want = 15 * 3 * cfg.n_layers        # two pods' passes + the exact step
+    if grew["flash_attention"] != want or sum(grew.values()) != want:
+        raise AssertionError(f"compressed: launches {grew}, expected {want}")
+    if not (losses[-1] < losses[0] - 0.2
+            and abs(losses[-1] - ref[-1]) < 0.15):
+        raise AssertionError(f"compressed: losses {losses}, exact {ref}")
+    log(f"compressed step (2 pods, int8 error feedback) on the card: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, exact step's last "
+        f"{ref[-1]:.4f} (|diff| {abs(losses[-1] - ref[-1]):.4f} < 0.15); "
+        f"launches {grew}")
+    return grew
+
+
+def training_phase(dev, smi) -> dict:
+    t0 = time.perf_counter()
+    total = dict.fromkeys(native.LAUNCHES, 0)
+    for grew in (full_train_path(dev, smi), reduced_train_path(),
+                 resume_path(), compressed_path(dev)):
+        add_launches(total, grew)
+    log(f"phase 7 (training) took {time.perf_counter() - t0:.3f} s; "
+        f"launches {total}")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--key-pages", type=int, default=16_384)
@@ -2991,21 +3331,22 @@ def main(argv=None) -> int:
     # 2. Kernel checks (these launches are not the main paths').
     rows = kernel_checks(dev)
 
-    # 3.-6. The main paths.
+    # 3.-7. The main paths.
     launches, reports = main_path(args.key_pages, args.n_ops)
     for grew in (sharded_path(args.key_pages, args.n_ops, reports),
                  reliability_phase(args.key_pages, args.n_ops),
                  fault_phase(args.key_pages, args.n_ops),
                  auditor_phase(args.key_pages, args.n_ops),
                  index_phase(args.key_pages), quickstart_path(),
-                 serve_path(dev), reduced_serve_path(dev)):
+                 serve_path(dev), reduced_serve_path(dev),
+                 training_phase(dev, smi)):
         for k in launches:
             launches[k] += grew[k]
     for k in KERNELS:
         if launches[k] == 0:
             raise AssertionError(f"{k} never launched on the main paths")
 
-    # 7. Kernels line.
+    # 8. Kernels line.
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],
          "replaces": KERNELS[k][1], "launches": launches[k],
@@ -3013,7 +3354,7 @@ def main(argv=None) -> int:
          "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
          "bound_by": r["bound"][1], "library_ms": r.get("library_ms")}
         for k, r in rows.items()]}), flush=True)
-    # 8. The card, then the result.
+    # 9. The card, then the result.
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -542,7 +542,7 @@ class ModuleView:
         sites: list[tuple[FunctionInfo, ast.Call]] = []
         seen: set[str] = set()
         pools = [self._local]
-        for path, infos in self.index.by_module.items():
+        for infos in self.index.by_module.values():
             if infos is not self._local:
                 pools.append(infos)
         for infos in pools:

@@ -13,7 +13,10 @@ LM parameters travel as the JAX package's parameter tree: nested dicts of
 numpy arrays keyed as the port's module names (``blocks.attn.wq`` is
 ``tree["blocks"]["attn"]["wq"]``).  :func:`params_from_numpy` builds the
 port's model from such a tree and :func:`params_to_numpy` gives it back,
-bit for bit; bfloat16 crosses as its 16-bit pattern.
+bit for bit; bfloat16 crosses as its 16-bit pattern.  The AdamW state
+crosses the same way (:func:`opt_state_to_numpy`,
+:func:`opt_state_from_numpy`): ``{"m": tree, "v": tree, "step": int32}``,
+the JAX ``init_opt_state`` layout.
 """
 from __future__ import annotations
 
@@ -100,14 +103,67 @@ def _tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def params_to_numpy(model: nn.Module) -> dict:
-    """The model's parameters as a nested dict of numpy arrays (copies), one
-    level per submodule; a submodule without parameters gives ``{}``."""
-    tree = {name: _tensor_to_numpy(p).copy()
-            for name, p in model.named_parameters(recurse=False)}
-    for name, child in model.named_children():
-        tree[name] = params_to_numpy(child)
+def tree_items(tree: dict, prefix: tuple = ()):
+    """(path, leaf) pairs of a nested dict in ``jax.tree_util``'s order:
+    keys sorted at every level, empty dicts skipped."""
+    for key in sorted(tree):
+        val = tree[key]
+        if isinstance(val, dict):
+            yield from tree_items(val, prefix + (key,))
+        else:
+            yield prefix + (key,), val
+
+
+def tree_map(fn, tree: dict, *rest: dict) -> dict:
+    """``fn`` over the leaves of ``tree`` and the same leaves of ``rest``,
+    into a tree of the same shape."""
+    return {k: tree_map(fn, v, *(r[k] for r in rest)) if isinstance(v, dict)
+            else fn(v, *(r[k] for r in rest)) for k, v in tree.items()}
+
+
+def nest(flat: dict) -> dict:
+    """``{"blocks.attn.wq": x}`` (parameter names) -> the tree
+    ``{"blocks": {"attn": {"wq": x}}}``."""
+    tree: dict = {}
+    for name, leaf in flat.items():
+        *outer, last = name.split(".")
+        node = tree
+        for key in outer:
+            node = node.setdefault(key, {})
+        node[last] = leaf
     return tree
+
+
+def param_tree(model: nn.Module) -> dict:
+    """The model's live parameters as the JAX parameter tree: nested dicts,
+    one level per submodule (``{}`` for one without parameters)."""
+    tree = dict(model.named_parameters(recurse=False))
+    for name, child in model.named_children():
+        tree[name] = param_tree(child)
+    return tree
+
+
+def params_to_numpy(model: nn.Module) -> dict:
+    """The model's parameters as a nested dict of numpy arrays (copies)."""
+    return tree_map(lambda p: _tensor_to_numpy(p).copy(), param_tree(model))
+
+
+def opt_state_to_numpy(state: dict) -> dict:
+    """An AdamW state (``train.optimizer.init_opt_state``) as numpy copies,
+    the JAX state's layout: moment trees and an int32 step."""
+    return {"m": tree_map(lambda t: _tensor_to_numpy(t).copy(), state["m"]),
+            "v": tree_map(lambda t: _tensor_to_numpy(t).copy(), state["v"]),
+            "step": np.asarray(_tensor_to_numpy(state["step"]), np.int32)}
+
+
+def opt_state_from_numpy(state: dict, *, device=None) -> dict:
+    """The port's AdamW state on ``device`` (the card by default) from a
+    numpy copy of either package's state, bit for bit."""
+    device = resolve_device(device)
+    to = lambda a: _tensor_from_numpy(np.asarray(a)).to(device)
+    return {"m": tree_map(to, state["m"]), "v": tree_map(to, state["v"]),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=device)}
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, *,
@@ -119,16 +175,10 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, *,
     model = DenseLM(cfg, resolve_device(device))
     params = dict(model.named_parameters())
 
-    def leaves(node, prefix=""):
-        for key, val in node.items():
-            if isinstance(val, dict):
-                yield from leaves(val, f"{prefix}{key}.")
-            else:
-                yield f"{prefix}{key}", val
-
     seen = set()
     with torch.no_grad():
-        for name, a in leaves(tree):
+        for path, a in tree_items(tree):
+            name = ".".join(path)
             if name not in params:
                 raise KeyError(f"{name}: no such parameter in {cfg.name}")
             t = _tensor_from_numpy(np.asarray(a))

@@ -5,6 +5,15 @@ the checks and the dispatch.  The kernel reads q, k and v in their
 A CUDA tensor launches the kernel at any Sq and Sk, the decode shape
 Sq = 1 included; a CPU tensor takes the plain PyTorch version in ref.py.
 There is no fallback between the two.
+
+The kernel is forward only, as the JAX package's is.  When autograd
+records (grad enabled and an input that requires grad) the launch goes
+through :class:`_FlashAttention`, whose backward recomputes the plain
+``attend`` of ``models/layers.py`` on the saved q, k and v and returns its
+vector-Jacobian product: the gradient the JAX package trains with, the VJP
+of its ``_attend``.  So a CUDA output that needs a gradient always has a
+``grad_fn``.  Under ``no_grad`` (serving) the launch is the same and no
+Function is recorded.
 """
 from __future__ import annotations
 
@@ -55,6 +64,16 @@ def flash_attention(q, k, v, *, causal: bool = True,
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must be 16-byte aligned")
+    mask = (causal, window, scale, q_offset)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, *mask)
+    return _launch(q, k, v, *mask)
+
+
+def _launch(q, k, v, causal, window, scale, q_offset):
+    """One launch of the kernel on checked, contiguous q, k, v."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     if q.numel():
         native.launch("flash_attention_launch", q, k, v, out, b, sq, sk, d, h,
@@ -62,3 +81,26 @@ def flash_attention(q, k, v, *, causal: bool = True,
                       DTYPES[q.dtype], device=q.device)
         native.LAUNCHES["flash_attention"] += 1
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel's forward; the backward is the VJP of the plain
+    ``attend`` recomputed on the saved inputs (no kernel launch)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = dict(causal=causal, window=window, scale=scale,
+                        q_offset=q_offset)
+        return _launch(q, k, v, causal, window, scale, q_offset)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # models.layers imports this module for its default attention, so
+        # the plain attention is imported when a gradient is first taken.
+        from repro_torch.models.layers import plain_attention
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = plain_attention(*qkv, **ctx.mask)
+            dq, dk, dv = torch.autograd.grad(out, qkv, grad)
+        return dq, dk, dv, None, None, None, None

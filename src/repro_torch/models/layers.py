@@ -10,7 +10,9 @@ and run on whatever device the tensors are on.
 dtype policy, as in the JAX package: parameters in ``cfg.dtype`` (bf16 by
 default); norms, SiLU, softmax and logits in float32, cast back.  The
 attention core is ``kernels.flash_attention.ops.flash_attention``: on the
-card every attention runs the hand-written kernel.
+card every attention runs the hand-written kernel, and under autograd its
+gradient is the vector-Jacobian product of :func:`attend`, the JAX
+package's ``_attend``, which is what the JAX package trains with.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import NEG_INF
 from .config import ModelConfig
 
 
@@ -130,6 +133,17 @@ class Blocks(nn.Module):
         return {name: {k: p[i] for k, p in mod.named_parameters()}
                 for name, mod in self.named_children()}
 
+    def layers(self) -> list[dict]:
+        """Every layer's weights as :meth:`layer` gives them, from one
+        ``unbind`` of each stacked parameter: under autograd the stacked
+        gradient is then one ``stack``, where ``layer(i)`` would add a
+        full-size gradient for every layer."""
+        per = {name: {k: p.unbind(0) for k, p in mod.named_parameters()}
+               for name, mod in self.named_children()}
+        return [{name: {k: t[i] for k, t in d.items()}
+                 for name, d in per.items()}
+                for i in range(self.attn.wq.shape[0])]
+
 
 # -------------------------------------------------------------------- norms
 
@@ -174,6 +188,67 @@ def rope(x, positions, theta: float):
 
 
 # ---------------------------------------------------------------- attention
+
+def _repeat_kv(t, group: int):
+    """(B, S, Hkv, D) -> (B, S, Hkv * group, D), each kv head repeated
+    ``group`` times in place (``jnp.repeat(t, group, axis=2)``).  An expand
+    and a reshape: its gradient is a sum over the copies, with no
+    ``repeat_interleave`` backward (a scatter on the card)."""
+    b, s, h, d = t.shape
+    return t[:, :, :, None, :].expand(b, s, h, group, d).reshape(
+        b, s, h * group, d)
+
+
+def attend(q, k, v, mask_bias, *, scale: float | None = None):
+    """The JAX package's ``_attend``: q (B, Sq, H, hd); k, v (B, Sk, Hkv,
+    hd); mask_bias (B|1, 1, Sq, Sk) additive float32.
+
+    GQA by repeating the kv heads up to H; scores and softmax in float32;
+    the probabilities cast to q's dtype before the product with v.  Scale
+    ``hd ** -0.5`` unless given.  Differentiable by autograd: the flash
+    attention kernel's gradient is this function's.
+    """
+    hd = q.shape[-1]
+    group = q.shape[2] // k.shape[2]
+    if group > 1:
+        k, v = _repeat_kv(k, group), _repeat_kv(v, group)
+    scale = hd ** -0.5 if scale is None else scale
+    scores = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float()) * scale
+    scores = scores + mask_bias
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqs,bshd->bqhd", probs, v).to(q.dtype)
+
+
+def causal_mask_bias(sq: int, sk: int, window: int | None, q_offset: int,
+                     device=None) -> torch.Tensor:
+    """(1, 1, Sq, Sk) additive float32 bias; query row i sits at absolute
+    position ``q_offset + i`` and sees keys ``j <= q_offset + i`` (and
+    ``j > q_offset + i - window`` with a window)."""
+    row = q_offset + torch.arange(sq, device=device)[:, None]
+    col = torch.arange(sk, device=device)[None, :]
+    keep = col <= row
+    if window is not None:
+        keep &= col > row - window
+    return torch.where(keep, 0.0, NEG_INF).to(torch.float32)[None, None]
+
+
+def plain_attention(q, k, v, *, causal: bool = True,
+                    window: int | None = None, scale: float | None = None,
+                    q_offset: int | None = None):
+    """:func:`attend` behind the flash attention wrapper's signature: the
+    plain attention that training compares the kernel with, and whose
+    vector-Jacobian product is the kernel's gradient.  Query row i sits at
+    ``q_offset + i`` (default ``Sk - Sq``)."""
+    sq, sk = q.shape[1], k.shape[1]
+    q_offset = sk - sq if q_offset is None else q_offset
+    if causal:
+        bias = causal_mask_bias(sq, sk, window, q_offset, q.device)
+    elif window is None:
+        bias = torch.zeros((1, 1, sq, sk), device=q.device)
+    else:
+        raise ValueError("attend has no window without causality")
+    return attend(q, k, v, bias, scale=scale)
+
 
 def apply_attention(p: dict, x, cfg: ModelConfig, *, positions,
                     q_offset: int = 0, kv_cache=None, cache_index=None,

@@ -1,19 +1,27 @@
-"""Model assembly for the dense family: init, prefill and decode.
+"""Model assembly for the dense family: init, training forward, prefill
+and decode.
 
   init_model(cfg, seed=0, device=None)            -> DenseLM
+  train_logits(model, tokens, remat=None)         -> logits (B,S,V), aux
   prefill(model, tokens, cache_len)               -> logits_last, caches
   decode_step(model, token, caches, index)        -> logits, caches
 
 The counterpart of the JAX package's ``models/model.py`` for the dense
 family (granite, qwen3, olmo, starcoder2): one Python loop over the
-layer-stacked weights takes the place of ``jax.lax.scan``.  Caches are
-``{"kv": (k, v)}`` of (L, B, C, Hkv, hd) tensors that prefill fills and
-decode steps update in place (the JAX package returns new arrays).
+layer-stacked weights takes the place of ``jax.lax.scan``, and
+``torch.utils.checkpoint`` around each block takes the place of
+``jax.checkpoint``.  Caches are ``{"kv": (k, v)}`` of (L, B, C, Hkv, hd)
+tensors that prefill fills and decode steps update in place (the JAX
+package returns new arrays).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -57,6 +65,32 @@ class DenseLM(nn.Module):
             mod.reset_parameters(gen)
 
 
+def logical_axes(cfg: ModelConfig) -> dict:
+    """The logical axis names of every parameter, keyed as the parameter
+    tree (``repro_torch.convert.param_tree``): the JAX ``init_model``'s
+    ``axes`` for the dense family, which ``parallel/sharding.py`` maps onto
+    a mesh."""
+    _require_dense(cfg)
+    attn = {"wq": ("layers", "embed", "heads", "head_dim"),
+            "wk": ("layers", "embed", "kv_heads", "head_dim"),
+            "wv": ("layers", "embed", "kv_heads", "head_dim"),
+            "wo": ("layers", "heads", "head_dim", "embed")}
+    if cfg.qk_norm:
+        attn["q_norm"] = attn["k_norm"] = ("layers", "head_dim")
+    norms = {} if cfg.nonparametric_norm else {
+        f"norm_{i}": ("layers", "embed") for i in range(2)}
+    axes = {"embed": ("vocab", "embed"),
+            "blocks": {"attn": attn, "norms": norms,
+                       "mlp": {"wi_gate": ("layers", "embed", "mlp"),
+                               "wi_up": ("layers", "embed", "mlp"),
+                               "wo": ("layers", "mlp", "embed")}}}
+    if not cfg.tie_embeddings:
+        axes["head"] = ("embed", "vocab")
+    if not cfg.nonparametric_norm:
+        axes["final_norm"] = ("embed",)
+    return axes
+
+
 def init_model(cfg: ModelConfig, *, seed: int = 0, device=None) -> DenseLM:
     """A randomly initialised model on ``device`` (the card by default), its
     weights drawn there from a ``torch.Generator`` seeded with ``seed``.
@@ -82,8 +116,29 @@ def _dense_block(bp: dict, x, cfg: ModelConfig, *, positions, q_offset=0,
     return x + apply_mlp(bp["mlp"], h)
 
 
+class _EmbedLookup(torch.autograd.Function):
+    """``table[tokens]``, whose gradient is the product of the tokens'
+    one-hot rows with the output gradient.  Indexing's own backward
+    accumulates repeated tokens with atomics on the card (and in parallel
+    on the CPU), so two runs of one step could round differently; a matrix
+    product sums in a fixed order, which a bitwise resume needs."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.rows = table.shape[0]
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, grad):
+        tokens, = ctx.saved_tensors
+        rows = torch.arange(ctx.rows, device=tokens.device)
+        one_hot = (tokens.reshape(-1, 1) == rows).to(grad.dtype)
+        return one_hot.T @ grad.reshape(-1, grad.shape[-1]), None
+
+
 def embed_tokens(model: DenseLM, tokens):
-    x = model.embed[tokens]                           # (B, S, d) gather
+    x = _EmbedLookup.apply(model.embed, tokens)       # (B, S, d) gather
     return x * torch.tensor(model.cfg.d_model ** 0.5, dtype=x.dtype)
 
 
@@ -99,6 +154,57 @@ def _final_logits(model: DenseLM, x):
         col = torch.arange(cfg.padded_vocab, device=logits.device)
         logits = torch.where(col < cfg.vocab_size, logits, -1e30)
     return logits
+
+
+# ============================================================== train mode
+
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: keep the outputs of matrix
+    products without batch dimensions (the projections; ``einsum`` lowers
+    them to a ``bmm`` over a batch of one) and recompute the rest."""
+    if op in _MATMULS or (op is torch.ops.aten.bmm.default
+                          and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, remat: str):
+    """``fn`` under activation checkpointing: ``"full"`` saves only the
+    inputs and recomputes the block in the backward pass, ``"block"`` also
+    saves the projections' outputs, ``"none"`` returns ``fn``."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if remat == "block":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False, context_fn=functools.partial(
+                create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"remat {remat!r}: one of none, block, full")
+
+
+def train_logits(model: DenseLM, tokens, *, remat: str | None = None,
+                 attention=flash_attention):
+    """tokens (B, S) -> (logits (B, S, V_pad) float32, aux).
+
+    Every block runs under ``remat`` (``cfg.remat`` unless given); pad
+    vocabulary columns are -1e30; ``aux`` is 0.0, the dense family having
+    no auxiliary loss.  ``attention`` is the attention core: the kernel's
+    wrapper, whose gradient is the plain ``attend``'s, or
+    ``layers.plain_attention`` to check it."""
+    cfg = model.cfg
+    s = tokens.shape[1]
+    x = embed_tokens(model, tokens)
+    positions = torch.arange(s, device=x.device)[None, :]
+    block = _maybe_remat(functools.partial(
+        _dense_block, cfg=cfg, positions=positions, attention=attention),
+        cfg.remat if remat is None else remat)
+    for bp in model.blocks.layers():
+        x = block(bp, x)
+    return _final_logits(model, x), torch.zeros((), device=x.device)
 
 
 # ======================================================== prefill / decode

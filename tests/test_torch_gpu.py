@@ -47,14 +47,18 @@ from repro_torch.kernels.sim_search.ops import sim_search, sim_search_chips
 from repro_torch.kernels.sim_search.ref import (sim_search_chips_ref,
                                                 sim_search_ref, stream_planes)
 from repro_torch.configs import get_config, reduced_config
-from repro_torch.convert import params_from_numpy, params_to_numpy
+from repro_torch.convert import param_tree, params_from_numpy, params_to_numpy
 from repro_torch.launch.serve import requests, serve
+from repro_torch.models.layers import plain_attention
 from repro_torch.models.model import init_model
 from repro_torch.reliability import (DegradedReadError, FaultModel,
                                      FaultSchedule, ReliabilityPolicy,
                                      ReliabilityState, UncorrectableReadError)
 from repro_torch.serve.batching import ServeEngine
 from repro_torch.serve.kvcache import SimPagedKVCache
+from repro_torch.train.data import DataConfig, batch_at_step
+from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+from repro_torch.train.train_step import make_train_step, value_and_grad
 from repro_torch.workload.ycsb import generate
 
 
@@ -382,6 +386,78 @@ def test_flash_attention_windows_and_empty_rows(dtype):
                      dict(causal=False), seed=5)
     _check_attention(dev, dtype, (3, 1, 1000, 4, 4, 32),
                      dict(causal=True, q_offset=999), seed=6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,kw", [
+    ((2, 64, 64, 8, 2, 64), dict(causal=True, q_offset=0)),
+    ((1, 96, 96, 4, 4, 128), dict(causal=True, window=32, q_offset=0)),
+    ((2, 17, 17, 16, 16, 16), dict(causal=True, q_offset=0)),
+])
+def test_flash_attention_gradient_is_the_attend_vjp(dtype, shape, kw):
+    """Under autograd the kernel's output has a ``grad_fn`` and the kernel
+    launches once; q, k and v gradients equal the VJP of the plain
+    ``attend`` on the same inputs bitwise (the backward recomputes it, on
+    one stream); the forward is within the kernel's tolerance of its plain
+    version.  Under ``no_grad``, and for inputs that need no gradient, the
+    output has no ``grad_fn``."""
+    dev = _cuda_or_skip()
+    q, k, v = (t.requires_grad_() for t in _attn_inputs(
+        dev, dtype, *shape, seed=sum(shape)))
+    g = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(
+        1), device=dev).to(dtype)
+    before = native.LAUNCHES["flash_attention"]
+    out = flash_attention(q, k, v, **kw)
+    assert out.grad_fn is not None and out.requires_grad
+    got = torch.autograd.grad(out, (q, k, v), g)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["flash_attention"] == before + 1
+    want = torch.autograd.grad(plain_attention(q, k, v, **kw), (q, k, v), g)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and torch.equal(a, b)
+    tol = 2e-6 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.detach().float(), attention_ref(
+        q.detach(), k.detach(), v.detach(), **kw).float(), atol=tol, rtol=tol)
+    with torch.no_grad():
+        assert flash_attention(q, k, v, **kw).grad_fn is None
+    assert flash_attention(q.detach(), k.detach(), v.detach(),
+                           **kw).grad_fn is None
+    assert flash_attention(q.detach(), k, v.detach(), **kw).grad_fn \
+        is not None
+    assert native.LAUNCHES["flash_attention"] == before + 4
+
+
+@pytest.mark.gpu
+def test_train_steps_on_card_launch_the_kernel_and_match_plain():
+    """Reduced olmo-1b in float32 on the card: three steps launch the kernel
+    twice a layer a step (forward and the remat recompute), every
+    parameter gets a finite gradient, and one step's loss and gradients
+    are within 1e-4 of the same step with the plain attention."""
+    dev = _cuda_or_skip()
+    cfg = dataclasses.replace(reduced_config(get_config("olmo-1b")),
+                              dtype="float32")
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4,
+                      seed=0)
+    model = init_model(cfg, seed=0, device=dev)
+    opt_cfg = AdamWConfig(lr=1e-3)
+    state = init_opt_state(param_tree(model), opt_cfg)
+    step = make_train_step(cfg, opt_cfg)
+    native.reset_launches()
+    for s in range(3):
+        model, state, m = step(model, state, batch_at_step(data, s,
+                                                           device=dev))
+        assert np.isfinite(float(m["loss"]))
+    assert native.LAUNCHES["flash_attention"] == 3 * 2 * cfg.n_layers
+    b = batch_at_step(data, 3, device=dev)
+    (loss, _), grads = value_and_grad(model, b["tokens"], b["labels"])
+    (ploss, _), pgrads = value_and_grad(model, b["tokens"], b["labels"],
+                                        attention=plain_attention)
+    assert abs(float(loss) - float(ploss)) < 1e-4
+    for name, t in grads.items():
+        assert torch.isfinite(t).all(), name
+        ref = pgrads[name]
+        assert float((t - ref).norm() / ref.norm().clamp(min=1e-30)) < 1e-4
 
 
 @pytest.mark.gpu

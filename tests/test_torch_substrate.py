@@ -31,7 +31,7 @@ from repro_torch.cache.pagecache import CacheStats, PageCache
 from repro_torch.core import BatchStats, DeadlineScheduler
 from repro_torch.core.commands import Command
 from repro_torch.flash import params
-from repro_torch.flash.params import DEFAULT_PARAMS, FlashParams
+from repro_torch.flash.params import DEFAULT_PARAMS
 from repro_torch.flash.ssd import EnergyAccount, SSDSim
 from repro_torch.frontend import LatencyReport, RunReport
 from repro_torch.workload import runner
