@@ -120,11 +120,39 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    Then the int8 error-feedback step, 2 pods stacked, 15 steps of reduced
    olmo-1b in float32 beside the uncompressed step, within the JAX test's
    bounds.
-8. One JSON line of the kernels, their launches and times.
-9. The card's ``nvidia-smi`` name and power limit, then the last line:
-   ``{"ok": true, "device": {...}}``.
+8. Model families, each run's model freed before the next.  hymba-1.5b
+   (hybrid) at full width and depth (1.39 B bf16 parameters) through
+   ``ServeEngine`` with a 2,048-token cache, a ring of 1,024 slots: the
+   launcher's 8 requests and two seeded long ones, a 1,000-token prompt
+   with 48 new tokens (decode wraps the ring) and a 1,536-token prompt with
+   8 (prefill rolls the last 1,024 positions into place); windowed and
+   global layers in one stack, ring decode at q_offset min(index, 1023).
+   Layer 0's ring slots after the long prefill hold their positions' k.
+   mixtral-8x22b (MoE) at full width with 12 of its 56 layers, the
+   launcher's 8 requests, SiM-paged, counters equal to the recount.
+   internvl2-26b (VLM) at full width and depth: one 320-token prompt with
+   256 seeded stub patch embeddings, 16 decode steps.  whisper-medium
+   (audio) at full width and depth: 1,500 seeded stub frames through the
+   non-causal encoder, an 8-token prompt, 16 decode steps with
+   cross-attention.  xlstm-350m (ssm) at full width served with the
+   launcher's 8 requests (no attention), then in float32 prefill and a
+   decode step against ``train_logits``.  Then every arch's launcher
+   default, reduced, on the card (whisper refused: the engine passes no
+   frames).  Every request completes; ``flash_attention`` launches
+   exactly once an attention (``n_layers`` a prefill and a decode step;
+   whisper 72 a prefill, 48 a decode step) and nothing else launches.  A
+   prefill and teacher-forced decode steps run again through the kernel
+   and through ``plain_attention`` (an MoE's routing pinned to the kernel
+   run's): every attention call of the kernel run within phase 2's bound
+   of the plain attention on its own inputs, and every step's logits
+   within 5e-2 relative L2 of the plain run's or, at a step beyond it,
+   within 1.5x the largest distance between reference runs there
+   (``attention_ref``, the float64 attention, seeded dithers of it).
+9. One JSON line of the kernels, their launches and times.
+10. The card's ``nvidia-smi`` name and power limit, then the last line:
+    ``{"ok": true, "device": {...}}``.
 
-The launch counts are set to 0 just before each path of phases 3–7 and read
+The launch counts are set to 0 just before each path of phases 3–8 and read
 just after it; they show which kernels ran on that path. The replay scale
 is 20% of the paper's 650 MiB index: 16,384 key pages and 16,384 value
 pages of 4 KiB on 16 chips, for every replay path, the sharded and reliable
@@ -138,6 +166,8 @@ from __future__ import annotations
 import argparse
 import bisect
 import dataclasses
+import gc
+import itertools
 import json
 import os
 import shutil
@@ -162,7 +192,8 @@ from repro_torch.backend import (BatchedKernelBackend,  # noqa: E402
 from repro_torch.backend import sharded as sharded_backend  # noqa: E402
 from repro_torch.backend.batched import PAGE_BLOCK  # noqa: E402
 from repro_torch.backend.planestore import next_pow2, padded_rows  # noqa: E402
-from repro_torch.configs import get_config, reduced_config  # noqa: E402
+from repro_torch.configs import (ARCHS, get_config,  # noqa: E402
+                                 reduced_config)
 from repro_torch.backend import batched as batched_backend  # noqa: E402
 from repro_torch.convert import (chip_array_from_numpy,  # noqa: E402
                                  chip_array_to_numpy)
@@ -211,9 +242,12 @@ from repro_torch.kernels.timing import (ARENA_ROWS,  # noqa: E402
 from repro_torch.launch.serve import requests, serve  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.convert import nest, param_tree  # noqa: E402
-from repro_torch.models.layers import plain_attention  # noqa: E402
-from repro_torch.models.model import (DenseLM, init_model,  # noqa: E402
-                                      prefill)
+from repro_torch.models import moe as moe_module  # noqa: E402
+from repro_torch.models.layers import (block_norm,  # noqa: E402
+                                       plain_attention, rope)
+from repro_torch.models.model import (LM, decode_step,  # noqa: E402
+                                      embed_tokens, init_model, prefill,
+                                      train_logits)
 from repro_torch.parallel.compression import (  # noqa: E402
     init_error_state, make_compressed_train_step)
 from repro_torch.train.data import DataConfig, batch_at_step  # noqa: E402
@@ -877,7 +911,11 @@ def plan_chips_checks(dev, floor_ms) -> dict:
 
 # (label, dtype, (B, Sq, Sk, H, Hkv, D), masks): qwen3-4b's prefill and
 # decode shapes on the serve path, the reduced qwen3-4b's (16-wide heads),
-# and the JAX package's sweep shape.
+# the JAX package's sweep shape, olmo-1b's training forward, and the model
+# families' forms: hymba's 25 q heads over 5 kv heads (group 5, head dim
+# 64) in windowed and global prefill and in ring decode, whisper's
+# non-causal encoder and cross-attention over 1,500 frames, mixtral's
+# decode and internvl2's prefill.
 ATTN_CASES = [
     ("qwen3-4b prefill", torch.bfloat16, (1, 16, 16, 32, 8, 128),
      dict(causal=True)),
@@ -895,7 +933,27 @@ ATTN_CASES = [
                       ("non-causal", dict(causal=False)),
                       ("window 128", dict(causal=True, window=128)))] + [
     ("olmo-1b training forward", torch.bfloat16,
-     (8, 512, 512, 16, 16, 128), dict(causal=True))]
+     (8, 512, 512, 16, 16, 128), dict(causal=True)),
+    ("hymba-1.5b prefill, window 1024", torch.bfloat16,
+     (1, 1536, 1536, 25, 5, 64), dict(causal=True, window=1024)),
+    ("hymba-1.5b prefill, global layer", torch.bfloat16,
+     (1, 1536, 1536, 25, 5, 64), dict(causal=True)),
+    ("hymba-1.5b ring decode, q_offset 1023", torch.bfloat16,
+     (1, 1, 1024, 25, 5, 64), dict(causal=True, q_offset=1023)),
+    ("hymba-1.5b ring decode, q_offset 300", torch.bfloat16,
+     (1, 1, 1024, 25, 5, 64), dict(causal=True, q_offset=300)),
+    ("hymba-1.5b float32 window 100", torch.float32,
+     (1, 300, 300, 25, 5, 64), dict(causal=True, window=100)),
+    ("whisper-medium encoder, non-causal", torch.bfloat16,
+     (1, 1500, 1500, 16, 16, 64), dict(causal=False)),
+    ("whisper-medium cross-attention prefill", torch.bfloat16,
+     (1, 8, 1500, 16, 16, 64), dict(causal=False)),
+    ("whisper-medium cross-attention decode", torch.bfloat16,
+     (1, 1, 1500, 16, 16, 64), dict(causal=False)),
+    ("mixtral-8x22b decode, q_offset 20", torch.bfloat16,
+     (1, 1, 128, 48, 8, 128), dict(causal=True, q_offset=20)),
+    ("internvl2-26b prefill", torch.bfloat16, (1, 320, 320, 48, 8, 128),
+     dict(causal=True))]
 # Timed for the kernels line: a decode step of the serve path, whose
 # positions run from 4 to 27 in a 128-slot cache.
 ATTN_TIMED = ("qwen3-4b decode, q_offset 16", torch.bfloat16,
@@ -3162,7 +3220,7 @@ def full_train_path(dev, smi) -> dict:
         raise AssertionError(f"train: losses {run.losses}")
     steady = sorted(run.step_s[1:])[len(run.step_s[1:]) // 2]
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    n_params = sum(p.numel() for p in DenseLM(
+    n_params = sum(p.numel() for p in LM(
         cfg, torch.device("meta")).parameters())
     log(f"train {TRAIN_ARCH} (full: {cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, {n_params} parameters, {cfg.dtype}, moments "
@@ -3303,6 +3361,502 @@ def training_phase(dev, smi) -> dict:
     return total
 
 
+# ------------------------------------------------- phase 8: model families
+# hymba-1.5b serves with a 2,048-token cache, which its window of 1,024
+# makes a ring of 1,024 slots.  Beside the launcher's 8 requests, two long
+# ones: a 1,000-token prompt whose 48 new tokens decode across the ring's
+# wrap, and a 1,536-token prompt whose prefill takes the s > C roll.
+HYMBA_ARCH, HYMBA_CACHE_LEN = "hymba-1.5b", 2048
+HYMBA_LONG = ((1000, 48), (1536, 8))
+# mixtral-8x22b is cut to 12 of its 56 layers: 56 layers are 281.3 GB of
+# bf16 weights, and 14 would leave under 9 GB of the 80 for the init's
+# float32 chunk, activations and the allocator.
+MOE_ARCH, MOE_LAYERS, MOE_CACHE_LEN = "mixtral-8x22b", 12, 128
+VLM_ARCH, VLM_PROMPT, VLM_STEPS = "internvl2-26b", 320, 16
+AUDIO_ARCH, AUDIO_PROMPT, AUDIO_STEPS = "whisper-medium", 8, 16
+SSM_ARCH = "xlstm-350m"
+# The xlstm check of tests/test_models_smoke.py: float32 prefill of S - 1
+# tokens then one decode step against train_logits at the last two
+# positions, within 2e-4 (absolute and relative).
+SSM_TOL = 2e-4
+# A ring slot against its position's k recomputed from the embeddings:
+# relative L2 error.  Both are bf16 projections of the same input, by
+# products of other shapes (the prefill projects the last C positions at
+# once), so they may round apart by a bf16 ulp (2^-8); another position's
+# k is a different vector, at a relative distance near sqrt(2).
+RING_K_TOL, RING_K_OTHER = 2e-2, 0.5
+
+
+def family_launches(cfg, prefills, decodes) -> int:
+    """flash_attention launches of a run: one a decoder layer a prefill and
+    a decode step; whisper adds a cross-attention a layer and, in prefill,
+    an encoder layer each (72 and 48 at full depth); xlstm has none."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.encoder_layers:
+        return (prefills * (2 * cfg.n_layers + cfg.encoder_layers)
+                + decodes * 2 * cfg.n_layers)
+    return cfg.n_layers * (prefills + decodes)
+
+
+def check_family_launches(label, grew, want) -> None:
+    if grew["flash_attention"] != want or sum(grew.values()) != want:
+        raise AssertionError(f"{label}: launches {grew}, expected {want} "
+                             "flash_attention and nothing else")
+
+
+def rel_l2(got, want) -> float:
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm())
+
+
+class PinnedRouting:
+    """Pins the MoE's routing across two runs: every top-k and top-C choice
+    (``models.moe.top_k_one_hot``) of the first run is recorded in call
+    order and taken again by the second, which counts in ``flips`` the
+    choices it would have made otherwise.  A routing choice is discrete: a
+    router logit a bf16 rounding apart can swap two experts and change a
+    token's output wholesale, which no bound on the attention's rounding
+    covers; pinned, the two runs differ by the attention alone."""
+
+    def __init__(self):
+        self.recorded, self.replay, self.flips = [], None, 0
+
+    def __enter__(self):
+        self.original = moe_module.top_k_one_hot
+        moe_module.top_k_one_hot = self.top_k_one_hot
+        return self
+
+    def __exit__(self, *exc):
+        moe_module.top_k_one_hot = self.original
+
+    def top_k_one_hot(self, scores, k):
+        values, idx, one_hot = self.original(scores, k)
+        if self.replay is None:
+            self.recorded.append(idx)
+            return values, idx, one_hot
+        pinned = self.replay.pop(0)
+        self.flips += int((pinned.sort(-1).values != idx.sort(-1).values)
+                          .any(-1).sum())
+        one_hot = (pinned[..., None] == torch.arange(
+            scores.shape[-1], device=scores.device)).to(scores.dtype)
+        return (torch.einsum("...kn,...n->...k", one_hot, scores), pinned,
+                one_hot)
+
+    def start_replay(self) -> None:
+        self.replay = list(self.recorded)
+
+
+class CheckedAttention:
+    """The kernel's wrapper, each call also held to ``plain_attention`` on
+    the same inputs within ATTN_TOL (phase 2's per-launch bound, here at
+    the path's own inputs); ``worst`` is the largest absolute error."""
+
+    def __init__(self, label):
+        self.label, self.calls, self.worst = label, 0, 0.0
+
+    def __call__(self, q, k, v, **kw):
+        out = flash_attention(q, k, v, **kw)
+        plain = plain_attention(q, k, v, **kw).float()
+        diff = (out.float() - plain).abs()
+        tol = ATTN_TOL[q.dtype]
+        if not (diff <= tol + tol * plain.abs()).all():
+            raise AssertionError(f"{self.label}: attention call {self.calls} "
+                                 f"({kw}) differs from plain_attention by "
+                                 f"{float(diff.max())}")
+        self.calls += 1
+        self.worst = max(self.worst, float(diff.max()))
+        return out
+
+
+# A teacher-forced step whose kernel logits stray past LOGITS_REL_TOL from
+# the plain run's passes only within WITNESS_FACTOR of the largest distance
+# between two reference runs at that step: plain_attention,
+# attention_ref, the float64 attention rounded once to q's dtype, and
+# WITNESS_DITHERS seeded dithers of it (each output scaled by 1 + u 2^-9,
+# u uniform in [-1, 1], before the rounding: perturbations of the size of
+# the rounding itself).  On hymba-1.5b, a step can amplify rounding-sized
+# differences of the attention outputs to logits 0.1-0.27 apart between
+# any two of these (one seed's 1,000-token request: decode step 32, where
+# layer 16's mamba branch output has an RMS of 0.0021, 100x below the other
+# layers', and hymba's block RMS-normalizes that branch before adding it).
+WITNESS_FACTOR, WITNESS_DITHERS, DITHER = 1.5, 2, 2.0 ** -9
+
+
+def float64_attention(q, k, v, **kw):
+    """``attention_ref`` on q, k, v's values in float64."""
+    return attention_ref(q.double(), k.double(), v.double(), **kw)
+
+
+def rounded_attention(seed=None):
+    """The float64 attention rounded once to q's dtype; with a ``seed``,
+    each output is first scaled by 1 + u DITHER, u uniform in [-1, 1]
+    drawn from a generator seeded so."""
+    gen = None
+
+    def call(q, k, v, **kw):
+        nonlocal gen
+        out = float64_attention(q, k, v, **kw)
+        if seed is not None:
+            if gen is None:
+                gen = torch.Generator(device=q.device).manual_seed(seed)
+            u = torch.rand(out.shape, generator=gen, device=q.device,
+                           dtype=torch.float64)
+            out = out * (1 + (2 * u - 1) * DITHER)
+        return out.to(q.dtype)
+    return call
+
+
+def forced_logits(model, prompt, feed, cache_len, fe, attention) -> list:
+    """The real vocabulary's logits of the prefill of ``prompt`` and of
+    the decode steps fed ``feed``, through ``attention``."""
+    dev = model.embed.device
+    v = model.cfg.vocab_size
+    logits, caches = prefill(model, torch.tensor([prompt], device=dev),
+                             cache_len, frontend_embeds=fe,
+                             attention=attention)
+    out = [logits[0, :v]]
+    for i, tok in enumerate(feed):
+        logits, caches = decode_step(
+            model, torch.tensor([[tok]], device=dev), caches,
+            len(prompt) + i, enc_out=caches.get("enc_out"),
+            attention=attention)
+        out.append(logits[0, :v])
+    return out
+
+
+def teacher_forced(label, model, prompt, served, cache_len, steps=None,
+                   fe=None) -> float:
+    """The logits of a prefill and of decode steps fed the served tokens,
+    through the kernel and through ``plain_attention`` (an MoE's routing
+    pinned to the kernel run's: ``PinnedRouting``).  Every attention call
+    of the kernel run is held to the plain attention on its own inputs
+    (``CheckedAttention``).  End to end, every step's logits (the first
+    token's included) must be within LOGITS_REL_TOL relative L2 of the
+    plain run's or, at a step beyond it, within WITNESS_FACTOR of the
+    largest distance between two reference runs there (run only when a
+    step needs them).  Checks that the kernel's first token is the served
+    one; returns the worst step's error."""
+    feed = served[:-1] if steps is None else served[:steps]
+    checked = CheckedAttention(label)
+    with PinnedRouting() as pin:
+        def run(attention):
+            out = forced_logits(model, prompt, feed, cache_len, fe,
+                                attention)
+            pin.start_replay()
+            return out
+
+        kernel = run(checked)
+        plain = run(plain_attention)
+        flips = pin.flips
+        rels = [rel_l2(a, b) for a, b in zip(kernel, plain)]
+        over = [i for i, r in enumerate(rels) if r > LOGITS_REL_TOL]
+        refs = [plain]
+        if over:
+            refs += [run(attention_ref), run(rounded_attention())] + [
+                run(rounded_attention(seed))
+                for seed in range(WITNESS_DITHERS)]
+    witness = {i: max(rel_l2(a[i], b[i])
+                      for a, b in itertools.combinations(refs, 2))
+               for i in over}
+    if not all(torch.isfinite(t).all() for run_ in refs + [kernel]
+               for t in run_):
+        raise AssertionError(f"{label}: non-finite logits")
+    agree = sum(int(t.argmax()) == tok for t, tok in zip(kernel, served))
+    if int(kernel[0].argmax()) != served[0]:
+        raise AssertionError(f"{label}: the recomputed first token differs "
+                             "from the served one")
+    worst = max(rels)
+    routing = f"; MoE routing pinned ({len(pin.recorded)} choices, " \
+        f"{flips} rows the plain run would have routed otherwise)" \
+        if pin.recorded else ""
+    log(f"{label}: prompt {len(prompt)}, {len(feed)} teacher-forced decode "
+        f"steps; {checked.calls} attention calls each within ATTN_TOL of "
+        f"plain_attention on their inputs (max abs err {checked.worst:.3e}); "
+        f"kernel vs plain_attention logits rel L2 first token "
+        f"{rels[0]:.3e}, median {float(np.median(rels)):.3e}, worst "
+        f"{worst:.3e}; steps over {LOGITS_REL_TOL} (step: kernel vs plain, "
+        f"largest distance between the {len(refs)} reference runs): "
+        f"{[(i, round(rels[i], 4), round(witness[i], 4)) for i in over]}; "
+        f"kernel argmax equals the served token at {agree} of {len(kernel)} "
+        f"positions{routing}")
+    bad = [i for i in over if rels[i] > WITNESS_FACTOR * witness[i]]
+    if bad:
+        raise AssertionError(
+            f"{label}: logits differ from the plain attention beyond "
+            f"{LOGITS_REL_TOL} and beyond {WITNESS_FACTOR} x the references' "
+            f"own spread at steps "
+            f"{[(i, rels[i], witness[i]) for i in bad]}")
+    return worst
+
+
+def engine_report(label, cfg, engine, completions, wall_s, grew) -> None:
+    n_params = sum(p.numel() for p in engine.model.parameters())
+    tokens = sum(len(c.tokens) for c in completions)
+    log(f"{label} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{n_params} parameters, {cfg.dtype}): wall {wall_s:.3f} s (init "
+        f"and run), run {engine.run_s:.3f} s, {tokens} tokens, "
+        f"{tokens / engine.run_s:.2f} tokens/s; {engine.prefills} prefills, "
+        f"{1e3 * engine.prefill_s / engine.prefills:.3f} ms each; "
+        f"{engine.decodes} decode steps, "
+        f"{1e3 * engine.decode_s / max(engine.decodes, 1):.3f} ms each; "
+        f"launches {grew}; peak device memory "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+
+
+def check_completed(label, reqs, completions) -> None:
+    done = {c.req_id: c for c in completions}
+    if sorted(done) != sorted(r.req_id for r in reqs) or any(
+            len(done[r.req_id].tokens) != r.max_new_tokens for r in reqs):
+        raise AssertionError(f"{label}: a request did not complete with "
+                             "its max_new_tokens")
+
+
+def start_run() -> float:
+    """Free the previous run's memory, zero the peak and the launch counts;
+    the run's start on the host clock."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launches()
+    return time.perf_counter()
+
+
+def check_ring(model, prompt, cache_len) -> None:
+    """After a prefill longer than the ring, layer 0's ring slot p % C
+    holds position p's roped k, recomputed here from the embeddings (layer
+    0's k depends on them alone), for sampled p of the last C positions,
+    and not the k of position p - C, which the ring evicted."""
+    cfg = model.cfg
+    dev = model.embed.device
+    tokens = torch.tensor([prompt], device=dev)
+    s = len(prompt)
+    with torch.no_grad():
+        _, caches = prefill(model, tokens, cache_len)
+        ck = caches["kv"][0][0, 0]                  # layer 0: (C, Hkv, hd)
+        c = ck.shape[0]
+        bp = model.blocks.layer(0)
+        h = block_norm(embed_tokens(model, tokens), bp["norms"], 0, cfg)
+        k = rope(torch.einsum("bsd,dhk->bshk", h, bp["attn"]["wk"]),
+                 torch.arange(s, device=dev)[None], cfg.rope_theta)[0]
+    checked = []
+    for p in sorted({s - c, s - c + 1, c - 1, c, s - c // 2, s - 1}
+                    & set(range(s - c, s))):
+        rel = rel_l2(ck[p % c], k[p])
+        other = rel_l2(ck[p % c], k[p - c]) if p >= c else None
+        if rel > RING_K_TOL or (other is not None and other < RING_K_OTHER):
+            raise AssertionError(f"ring: slot {p % c} vs position {p}: rel "
+                                 f"{rel:.3e}, vs position {p - c}: {other}")
+        checked.append((p, p % c, round(rel, 6)))
+    log(f"ring check ({s}-token prefill, {c}-slot ring): (position, slot, "
+        f"rel L2 vs its k) {checked}; every sampled slot holds its position "
+        f"and not the evicted one")
+
+
+def hymba_path(dev) -> dict:
+    """hymba-1.5b at full width and depth through ``ServeEngine``, unpaged,
+    both ring paths taken; launch counts, logits against the plain
+    attention, the ring layout."""
+    cfg = get_config(HYMBA_ARCH)
+    rng = np.random.default_rng(8)
+    reqs = requests(8, cfg.vocab_size, 0) + [
+        Request(req_id=8 + i, max_new_tokens=n,
+                prompt=rng.integers(0, cfg.vocab_size, s).tolist())
+        for i, (s, n) in enumerate(HYMBA_LONG)]
+    t0 = start_run()
+    model = init_model(cfg, seed=0, device=dev)
+    engine = ServeEngine(model, cache_len=HYMBA_CACHE_LEN)
+    for r in reqs:
+        engine.submit(r)
+    completions = engine.run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    grew = dict(native.LAUNCHES)
+    engine_report(f"serve {HYMBA_ARCH} (full, ring of "
+                  f"{min(HYMBA_CACHE_LEN, cfg.sliding_window)} slots, "
+                  f"{len(reqs)} requests incl. prompts {HYMBA_LONG})", cfg,
+                  engine, completions, wall_s, grew)
+    check_completed(HYMBA_ARCH, reqs, completions)
+    check_family_launches(HYMBA_ARCH, grew, family_launches(
+        cfg, engine.prefills, engine.decodes))
+    log(f"{HYMBA_ARCH} prefill ms by prompt length: " + ", ".join(
+        f"{len(r.prompt)}: {1e3 * c.prefill_s:.3f}"
+        for r, c in zip(reqs, sorted(completions, key=lambda c: c.req_id))))
+    served = {c.req_id: c.tokens for c in completions}
+    for r in (reqs[0], reqs[8], reqs[9]):
+        teacher_forced(f"{HYMBA_ARCH} request {r.req_id}", model, r.prompt,
+                       served[r.req_id], HYMBA_CACHE_LEN)
+    check_ring(model, reqs[9].prompt, HYMBA_CACHE_LEN)
+    return grew
+
+
+def moe_path(dev) -> dict:
+    """mixtral-8x22b at full width, 12 layers, the launcher's 8 requests
+    through ``ServeEngine`` with the launcher's SiM-paged cache (within its
+    128-slot ring: positions stay below 28)."""
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    reqs = requests(8, cfg.vocab_size, 0)
+    t0 = start_run()
+    model = init_model(cfg, seed=0, device=dev)
+    cache = SimPagedKVCache(cfg, n_pages=256, page_tokens=16, device=dev)
+    engine = ServeEngine(model, cache_len=MOE_CACHE_LEN, paged_cache=cache)
+    for r in reqs:
+        engine.submit(r)
+    completions = engine.run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    grew = dict(native.LAUNCHES)
+    engine_report(f"serve {MOE_ARCH} (full width, n_layers cut 56 -> "
+                  f"{MOE_LAYERS}, paged)", cfg, engine, completions, wall_s,
+                  grew)
+    check_completed(MOE_ARCH, reqs, completions)
+    check_family_launches(MOE_ARCH, grew, family_launches(
+        cfg, engine.prefills, engine.decodes))
+    want = paged_recount(reqs, completions, cache.page_tokens)
+    if cache.stats != want or want.pages_freed != want.pages_allocated:
+        raise AssertionError(f"{MOE_ARCH}: paged counters {cache.stats}, "
+                             f"recount {want}")
+    log(f"{MOE_ARCH}: paged counters {cache.stats} equal the recount, every "
+        "page freed")
+    served = {c.req_id: c.tokens for c in completions}
+    for r in reqs[:2]:
+        teacher_forced(f"{MOE_ARCH} request {r.req_id}", engine.model,
+                       r.prompt, served[r.req_id], MOE_CACHE_LEN)
+    return grew
+
+
+def direct_path(label, cfg, dev, prompt_len, steps, frontend_len) -> dict:
+    """``prefill`` of one seeded prompt with seeded stub embeddings, then
+    greedy decode steps, timed; then the same steps teacher-forced through
+    the plain attention."""
+    rng = np.random.default_rng(9)
+    prompt = rng.integers(0, cfg.vocab_size, prompt_len).tolist()
+    t0 = start_run()
+    model = init_model(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    fe = torch.randn(1, frontend_len, cfg.d_model, device=dev,
+                     generator=gen).to(getattr(torch, cfg.dtype))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    logits, caches = prefill(model, torch.tensor([prompt], device=dev),
+                             prompt_len + steps, frontend_embeds=fe)
+    served = [int(logits.argmax(-1)[0])]
+    t2 = time.perf_counter()
+    for i in range(steps):
+        logits, caches = decode_step(
+            model, torch.tensor([[served[-1]]], device=dev), caches,
+            prompt_len + i, enc_out=caches.get("enc_out"))
+        served.append(int(logits.argmax(-1)[0]))
+    t3 = time.perf_counter()
+    grew = dict(native.LAUNCHES)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"{label} ({cfg.n_layers} layers, d_model {cfg.d_model}, {n_params} "
+        f"parameters, {cfg.dtype}): wall {t3 - t0:.3f} s (init and run); "
+        f"prefill of {prompt_len} tokens with {frontend_len} stub "
+        f"embeddings {1e3 * (t2 - t1):.3f} ms; {steps} decode steps "
+        f"{1e3 * (t3 - t2) / steps:.3f} ms each, "
+        f"{(steps + 1) / (t3 - t1):.2f} tokens/s; launches {grew}; peak "
+        f"device memory {torch.cuda.max_memory_allocated()} bytes")
+    check_family_launches(label, grew, family_launches(cfg, 1, steps))
+    del caches
+    teacher_forced(label, model, prompt, served, prompt_len + steps, fe=fe)
+    return grew
+
+
+def ssm_path(dev) -> dict:
+    """xlstm-350m at full width through ``launch.serve.serve`` with the
+    launcher's 8 requests (no attention: no launch); then, in float32,
+    prefill of 15 tokens and one decode step against ``train_logits``, the
+    check of tests/test_models_smoke.py."""
+    cfg = get_config(SSM_ARCH)
+    reqs = requests(8, cfg.vocab_size, 0)
+    t0 = start_run()
+    completions, engine, _ = serve(SSM_ARCH, reduced=False, verbose=False,
+                                   device=dev)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    grew = dict(native.LAUNCHES)
+    engine_report(f"serve {SSM_ARCH} (full)", cfg, engine, completions,
+                  wall_s, grew)
+    check_completed(SSM_ARCH, reqs, completions)
+    check_family_launches(SSM_ARCH, grew, 0)
+    del engine, completions
+    start_run()
+    model = init_model(dataclasses.replace(cfg, dtype="float32"), seed=0,
+                       device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(10).integers(
+        0, cfg.vocab_size, (2, 16))).to(dev)
+    with torch.no_grad():
+        full = train_logits(model, tokens)[0]
+    lp, caches = prefill(model, tokens[:, :15], 16)
+    ld = decode_step(model, tokens[:, 15:], caches, 15)[0]
+    worst = 0.0
+    for got, want in ((lp, full[:, 14]), (ld, full[:, 15])):
+        diff = (got - want).abs()
+        if not (diff <= SSM_TOL + SSM_TOL * want.abs()).all():
+            raise AssertionError(f"{SSM_ARCH}: prefill/decode vs "
+                                 f"train_logits: max abs err "
+                                 f"{float(diff.max())}")
+        worst = max(worst, float(diff.max()))
+    log(f"{SSM_ARCH} float32 on the card: prefill of 15 tokens and one "
+        f"decode step equal train_logits at positions 14 and 15 within "
+        f"{SSM_TOL} (max abs err {worst:.3e})")
+    return grew
+
+
+def launcher_defaults_path() -> dict:
+    """``python -m repro_torch.launch.serve --arch <arch>`` for every arch,
+    as a user runs it: the reduced config on the card, the launcher's 8
+    requests through the kernel, kimi-k2's shared expert included; whisper
+    refused (the engine passes no frames), as the JAX engine fails."""
+    total = dict.fromkeys(native.LAUNCHES, 0)
+    served = []
+    for arch in sorted(ARCHS):
+        cfg = reduced_config(get_config(arch))
+        start_run()
+        if cfg.encoder_layers:
+            try:
+                serve(arch, verbose=False)
+            except ValueError as err:
+                served.append(f"{arch}: refused ({err})")
+                continue
+            raise AssertionError(f"{arch}: the engine served an audio "
+                                 "config")
+        completions, engine, _ = serve(arch, verbose=False)
+        torch.cuda.synchronize()
+        grew = dict(native.LAUNCHES)
+        check_completed(arch, requests(8, cfg.vocab_size, 0), completions)
+        check_family_launches(f"reduced {arch}", grew, family_launches(
+            cfg, engine.prefills, engine.decodes))
+        add_launches(total, grew)
+        first = next(c for c in completions if c.req_id == 0)
+        teacher_forced(f"reduced {arch} request 0", engine.model,
+                       requests(1, cfg.vocab_size, 0)[0].prompt,
+                       first.tokens, engine.cache_len)
+        served.append(f"{arch}: {sum(len(c.tokens) for c in completions)} "
+                      f"tokens, {grew['flash_attention']} launches")
+    log(f"launcher defaults (reduced, on the card): {'; '.join(served)}")
+    return total
+
+
+def families_phase(dev) -> dict:
+    t0 = time.perf_counter()
+    total = dict.fromkeys(native.LAUNCHES, 0)
+    vlm, audio = get_config(VLM_ARCH), get_config(AUDIO_ARCH)
+    for grew in (hymba_path(dev), moe_path(dev),
+                 direct_path(f"{VLM_ARCH} (full)", vlm, dev, VLM_PROMPT,
+                             VLM_STEPS, vlm.frontend_tokens),
+                 direct_path(f"{AUDIO_ARCH} (full)", audio, dev,
+                             AUDIO_PROMPT, AUDIO_STEPS, audio.encoder_seq),
+                 ssm_path(dev), launcher_defaults_path()):
+        add_launches(total, grew)
+    start_run()
+    log(f"phase 8 (model families) took {time.perf_counter() - t0:.3f} s; "
+        f"launches {total}")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--key-pages", type=int, default=16_384)
@@ -3331,7 +3885,7 @@ def main(argv=None) -> int:
     # 2. Kernel checks (these launches are not the main paths').
     rows = kernel_checks(dev)
 
-    # 3.-7. The main paths.
+    # 3.-8. The main paths.
     launches, reports = main_path(args.key_pages, args.n_ops)
     for grew in (sharded_path(args.key_pages, args.n_ops, reports),
                  reliability_phase(args.key_pages, args.n_ops),
@@ -3339,14 +3893,14 @@ def main(argv=None) -> int:
                  auditor_phase(args.key_pages, args.n_ops),
                  index_phase(args.key_pages), quickstart_path(),
                  serve_path(dev), reduced_serve_path(dev),
-                 training_phase(dev, smi)):
+                 training_phase(dev, smi), families_phase(dev)):
         for k in launches:
             launches[k] += grew[k]
     for k in KERNELS:
         if launches[k] == 0:
             raise AssertionError(f"{k} never launched on the main paths")
 
-    # 8. Kernels line.
+    # 9. Kernels line.
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],
          "replaces": KERNELS[k][1], "launches": launches[k],
@@ -3354,7 +3908,7 @@ def main(argv=None) -> int:
          "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
          "bound_by": r["bound"][1], "library_ms": r.get("library_ms")}
         for k, r in rows.items()]}), flush=True)
-    # 9. The card, then the result.
+    # 10. The card, then the result.
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

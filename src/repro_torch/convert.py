@@ -27,7 +27,7 @@ from torch import nn
 from repro_torch.core.engine import SimChipArray, StoredPage
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import DenseLM
+from repro_torch.models.model import LM
 
 PAGE_FIELDS = ("raw", "clean_raw", "chunk_parities", "timestamp_ns",
                "n_entries", "injected_error_bits")
@@ -116,9 +116,14 @@ def tree_items(tree: dict, prefix: tuple = ()):
 
 def tree_map(fn, tree: dict, *rest: dict) -> dict:
     """``fn`` over the leaves of ``tree`` and the same leaves of ``rest``,
-    into a tree of the same shape."""
-    return {k: tree_map(fn, v, *(r[k] for r in rest)) if isinstance(v, dict)
-            else fn(v, *(r[k] for r in rest)) for k, v in tree.items()}
+    into a tree of the same shape; the leaves are visited in
+    ``jax.tree_util``'s order (keys sorted), as :func:`tree_items`'s."""
+    out = {}
+    for k in sorted(tree):
+        leaves = [r[k] for r in rest]
+        out[k] = tree_map(fn, tree[k], *leaves) if isinstance(tree[k], dict) \
+            else fn(tree[k], *leaves)
+    return out
 
 
 def nest(flat: dict) -> dict:
@@ -167,12 +172,12 @@ def opt_state_from_numpy(state: dict, *, device=None) -> dict:
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, *,
-                      device=None) -> DenseLM:
-    """The port's model for ``cfg`` with every parameter copied from
-    ``tree`` (the JAX ``init_model`` parameters as numpy).  Every leaf must
-    name a parameter of the same shape and dtype, and every parameter must
-    have a leaf.  ``device=None`` is the card."""
-    model = DenseLM(cfg, resolve_device(device))
+                      device=None) -> LM:
+    """The port's model for ``cfg``, of any family, with every parameter
+    copied from ``tree`` (the JAX ``init_model`` parameters as numpy).
+    Every leaf must name a parameter of the same shape and dtype, and
+    every parameter must have a leaf.  ``device=None`` is the card."""
+    model = LM(cfg, resolve_device(device))
     params = dict(model.named_parameters())
 
     seen = set()

@@ -17,7 +17,8 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None,
     a decode step against a full cache); it sees key j when
     ``j <= q_offset + i`` (causal) and ``j > q_offset + i - window``
     (window).  A row that sees no key gives 0.  Logits, softmax and the
-    value product run in float32; the result is in q's dtype.
+    value product run in float32 (float64 for float64 inputs); the result
+    is in q's dtype.
     """
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -25,9 +26,10 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None,
     scale = d ** -0.5 if scale is None else scale
     q_offset = sk - sq if q_offset is None else q_offset
 
-    kx = k.repeat_interleave(group, dim=2).float()
-    vx = v.repeat_interleave(group, dim=2).float()
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kx) * scale
+    ct = torch.promote_types(q.dtype, torch.float32)
+    kx = k.repeat_interleave(group, dim=2).to(ct)
+    vx = v.repeat_interleave(group, dim=2).to(ct)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(ct), kx) * scale
     row = q_offset + torch.arange(sq, device=q.device)[:, None]
     col = torch.arange(sk, device=q.device)[None, :]
     keep = torch.ones((sq, sk), dtype=torch.bool, device=q.device)

@@ -2,7 +2,12 @@
 full config (``--full``), on the card unless ``--device cpu``.
 ``--paged`` routes the KV cache through the SiM-paged block table (the
 paper's technique in the serving path).  Weights are random, from
-``seed``.
+``seed``.  Every arch the JAX package's engine serves is served: the
+dense, MoE, hybrid, VLM (text only: the engine passes no patch
+embeddings) and ssm families.  whisper's encoder needs its frames, which
+the engine does not pass: the engine refuses it (the JAX engine fails in
+prefill), and whisper runs through ``models.model.prefill`` and
+``decode_step``.
 
   python -m repro_torch.launch.serve --arch qwen3-4b --full --paged
   python -m repro_torch.launch.serve --arch qwen3-4b --paged

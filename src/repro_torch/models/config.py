@@ -4,7 +4,7 @@ The same dataclass as the JAX package's ``models/config.py``, copied so
 the port imports nothing of that package.  Families: dense
 (granite/qwen3/olmo/starcoder2), moe (kimi/mixtral), ssm (xlstm), hybrid
 (hymba), vlm (internvl — vision stub + LM backbone), audio (whisper —
-conv-frontend stub + enc-dec).  The port runs the dense family so far.
+conv-frontend stub + enc-dec).  The port runs every family.
 """
 from __future__ import annotations
 

@@ -1,11 +1,13 @@
-"""Core layers of the dense LM: norms, RoPE, GQA attention, SwiGLU.
+"""Core layers: norms, RoPE, GQA attention (self and cross), SwiGLU, and
+the layer stack that holds them.
 
 Parameters live in ``nn.Module``s that hold every layer's weights stacked
-on a leading ``(L, ...)`` axis, named as in the JAX package's parameter
-tree (``blocks.attn.wq`` is ``params["blocks"]["attn"]["wq"]``), so that
-``repro_torch.convert`` carries weights across by name.  The layer
-functions take one layer's weights as a dict of tensors (``Blocks.layer``)
-and run on whatever device the tensors are on.
+on leading axes (``(L, ...)``; the xLSTM stack's ``(n_rep, rep, ...)``),
+named as in the JAX package's parameter tree (``blocks.attn.wq`` is
+``params["blocks"]["attn"]["wq"]``), so that ``repro_torch.convert``
+carries weights across by name.  The layer functions take one layer's
+weights as a dict of tensors (``Stack.layer``) and run on whatever device
+the tensors are on.
 
 dtype policy, as in the JAX package: parameters in ``cfg.dtype`` (bf16 by
 default); norms, SiLU, softmax and logits in float32, cast back.  The
@@ -30,12 +32,25 @@ def pdtype(cfg: ModelConfig) -> torch.dtype:
 
 # --------------------------------------------------------------------- init
 
+# Elements of the float32 temporary that _dense_init draws at a time (1 GiB):
+# a full-width stacked weight (internvl2-26b's mlp.wi_gate holds 4.83e9) is
+# filled chunk by chunk beside the weights themselves.
+INIT_CHUNK = 1 << 28
+
+
 def _dense_init(t: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
     """Fill ``t`` in place: a normal truncated to +-2 sigma, drawn in float32
-    from ``gen``, scaled by 1/sqrt(fan_in), cast to ``t``'s dtype."""
-    x = torch.empty(t.shape, dtype=torch.float32, device=t.device)
-    nn.init.trunc_normal_(x, mean=0.0, std=1.0, a=-2.0, b=2.0, generator=gen)
-    t.copy_(x * fan_in ** -0.5)
+    from ``gen``, scaled by 1/sqrt(fan_in), cast to ``t``'s dtype.  The
+    draw runs over chunks of rows of ``t`` viewed as (rows, last dim), at
+    most ``INIT_CHUNK`` elements each, scaled in place."""
+    flat = t.view(-1, t.shape[-1])
+    step = max(1, INIT_CHUNK // flat.shape[1])
+    for i in range(0, flat.shape[0], step):
+        x = torch.empty(flat[i:i + step].shape, dtype=torch.float32,
+                        device=t.device)
+        nn.init.trunc_normal_(x, mean=0.0, std=1.0, a=-2.0, b=2.0,
+                              generator=gen)
+        flat[i:i + step].copy_(x.mul_(fan_in ** -0.5))
 
 
 def head_pad_mask(cfg: ModelConfig, device=None) -> torch.Tensor:
@@ -47,19 +62,21 @@ def head_pad_mask(cfg: ModelConfig, device=None) -> torch.Tensor:
     return (pos < g).to(torch.float32)
 
 
-def _param(shape, cfg: ModelConfig, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=pdtype(cfg), device=device),
-                        requires_grad=False)
+def _param(shape, cfg: ModelConfig, device, dtype=None) -> nn.Parameter:
+    """An uninitialised parameter in ``dtype``, the parameter dtype unless
+    given (the router and recurrent gates are float32 in any model)."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype or pdtype(cfg),
+                                    device=device), requires_grad=False)
 
 
 class Attention(nn.Module):
     """wq (L, d, H, hd), wk/wv (L, d, Hkv, hd), wo (L, H, hd, d), and with
     ``qk_norm`` q_norm/k_norm (L, hd); H is ``cfg.padded_heads``."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, n_layers: int, device=None):
         super().__init__()
         self.cfg = cfg
-        L, d, h, k, hd = (cfg.n_layers, cfg.d_model, cfg.padded_heads,
+        L, d, h, k, hd = (n_layers, cfg.d_model, cfg.padded_heads,
                           cfg.n_kv_heads, cfg.head_dim)
         self.wq = _param((L, d, h, hd), cfg, device)
         self.wk = _param((L, d, k, hd), cfg, device)
@@ -87,9 +104,9 @@ class Attention(nn.Module):
 class Mlp(nn.Module):
     """SwiGLU: wi_gate, wi_up (L, d, f) and wo (L, f, d)."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, n_layers: int, device=None):
         super().__init__()
-        L, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
+        L, d, f = n_layers, cfg.d_model, cfg.d_ff
         self.wi_gate = _param((L, d, f), cfg, device)
         self.wi_up = _param((L, d, f), cfg, device)
         self.wo = _param((L, f, d), cfg, device)
@@ -103,14 +120,16 @@ class Mlp(nn.Module):
 
 
 class Norms(nn.Module):
-    """norm_0 (before attention) and norm_1 (before the MLP), each (L, d),
-    or nothing with ``nonparametric_norm``."""
+    """norm_0 (before attention), norm_1 (before the MLP), ... each of shape
+    ``lead + (d,)``, or nothing with ``nonparametric_norm``."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, lead: tuple, n_norms: int = 2,
+                 device=None):
         super().__init__()
         if not cfg.nonparametric_norm:
-            self.norm_0 = _param((cfg.n_layers, cfg.d_model), cfg, device)
-            self.norm_1 = _param((cfg.n_layers, cfg.d_model), cfg, device)
+            for i in range(n_norms):
+                setattr(self, f"norm_{i}",
+                        _param(lead + (cfg.d_model,), cfg, device))
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:
@@ -118,18 +137,23 @@ class Norms(nn.Module):
             p.fill_(1.0)
 
 
-class Blocks(nn.Module):
-    """The decoder stack: attention, norms and MLP of every layer."""
+class Stack(nn.Module):
+    """Layer-stacked submodules (``blocks``, ``encoder``, ``cross``) whose
+    parameters share their leading axis, the one a layer loop walks."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, **mods: nn.Module):
         super().__init__()
-        self.attn = Attention(cfg, device)
-        self.norms = Norms(cfg, device)
-        self.mlp = Mlp(cfg, device)
+        for name, mod in mods.items():
+            self.add_module(name, mod)
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        for mod in self.children():
+            mod.reset_parameters(gen)
 
     def layer(self, i: int) -> dict:
-        """Layer ``i``'s weights as ``{"attn": {...}, "norms": {...},
-        "mlp": {...}}`` of views."""
+        """Layer ``i``'s weights as ``{"attn": {...}, "norms": {...}, ...}``
+        of views."""
         return {name: {k: p[i] for k, p in mod.named_parameters()}
                 for name, mod in self.named_children()}
 
@@ -140,9 +164,10 @@ class Blocks(nn.Module):
         full-size gradient for every layer."""
         per = {name: {k: p.unbind(0) for k, p in mod.named_parameters()}
                for name, mod in self.named_children()}
+        depth = next(self.parameters()).shape[0]
         return [{name: {k: t[i] for k, t in d.items()}
                  for name, d in per.items()}
-                for i in range(self.attn.wq.shape[0])]
+                for i in range(depth)]
 
 
 # -------------------------------------------------------------------- norms
@@ -251,15 +276,18 @@ def plain_attention(q, k, v, *, causal: bool = True,
 
 
 def apply_attention(p: dict, x, cfg: ModelConfig, *, positions,
-                    q_offset: int = 0, kv_cache=None, cache_index=None,
-                    attention=flash_attention):
-    """One attention layer; ``p`` holds the layer's weights.
+                    causal: bool = True, window: int | None = None,
+                    q_offset: int = 0, kv_cache=None,
+                    cache_index=None, attention=flash_attention):
+    """One self-attention layer; ``p`` holds the layer's weights.
 
-    Without a cache, x (B, S, d) attends to itself, query row i at absolute
-    position ``q_offset + i``.  With a cache ``(k_cache, v_cache)``, each
-    (B, C, Hkv, hd), the new tokens' k/v are written in place at
-    ``cache_index`` and x attends to the whole cache; slots past its own
-    position are masked by causality (``q_offset`` is the position).
+    The caller picks the mask: query row i sits at absolute position
+    ``q_offset + i`` and, when ``causal``, sees keys ``j <= q_offset + i``
+    (and ``j > q_offset + i - window`` with a window); without causality it
+    sees every key.  q and k are roped at ``positions``.  Without a cache,
+    x (B, S, d) attends to itself.  With a cache ``(k_cache, v_cache)``,
+    each (B, C, Hkv, hd), the new tokens' k/v are written in
+    place at slot ``cache_index`` and x attends to the whole cache.
     ``attention`` is the attention core: the kernel's wrapper, or its plain
     version to check it.
     """
@@ -281,12 +309,22 @@ def apply_attention(p: dict, x, cfg: ModelConfig, *, positions,
         ck[:, cache_index:cache_index + s] = k.to(ck.dtype)
         cv[:, cache_index:cache_index + s] = v.to(cv.dtype)
         k, v = ck, cv
-    out = attention(q, k, v, causal=True, window=cfg.sliding_window,
-                    q_offset=q_offset)
+    out = attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
     if cfg.padded_heads != cfg.n_heads:
         # zero the padded heads' outputs so they contribute nothing
         out = out * head_pad_mask(cfg, out.device).to(out.dtype)[
             None, None, :, None]
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def apply_cross_attention(p: dict, x, enc_out, *, attention=flash_attention):
+    """whisper's decoder cross-attention: q from x (B, S, d), k and v
+    projected from the encoder output (B, F, d); no rope, no mask, no
+    head-pad mask (the JAX package's ``_dense_block`` cross branch)."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"])
+    out = attention(q, k, v, causal=False)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 

@@ -1,18 +1,34 @@
-"""Model assembly for the dense family: init, training forward, prefill
-and decode.
+"""Model assembly for every family: init, training forward, prefill and
+decode.
 
-  init_model(cfg, seed=0, device=None)            -> DenseLM
-  train_logits(model, tokens, remat=None)         -> logits (B,S,V), aux
-  prefill(model, tokens, cache_len)               -> logits_last, caches
-  decode_step(model, token, caches, index)        -> logits, caches
+  init_model(cfg, seed=0, device=None)                      -> LM
+  train_logits(model, tokens, frontend_embeds=None)         -> logits, aux
+  prefill(model, tokens, cache_len, frontend_embeds=None)   -> logits, caches
+  decode_step(model, token, caches, index, enc_out=None)    -> logits, caches
 
-The counterpart of the JAX package's ``models/model.py`` for the dense
-family (granite, qwen3, olmo, starcoder2): one Python loop over the
-layer-stacked weights takes the place of ``jax.lax.scan``, and
-``torch.utils.checkpoint`` around each block takes the place of
-``jax.checkpoint``.  Caches are ``{"kv": (k, v)}`` of (L, B, C, Hkv, hd)
-tensors that prefill fills and decode steps update in place (the JAX
-package returns new arrays).
+The counterpart of the JAX package's ``models/model.py``: dense (granite,
+qwen3, olmo, starcoder2), moe (mixtral, kimi-k2), hybrid (hymba: attention
+and mamba heads side by side), ssm (xlstm: mLSTM and sLSTM blocks, no
+attention), vlm (internvl2: stub patch embeddings prepended to the text)
+and audio (whisper: a non-causal encoder over stub frames, a decoder with
+cross-attention).  One Python loop over the layer-stacked weights takes
+the place of ``jax.lax.scan``, and ``torch.utils.checkpoint`` around each
+block takes the place of ``jax.checkpoint``.
+
+Masks follow the JAX package layer by layer: in train and prefill a
+sliding-window config attends within its window, except on its global
+layers (``lid % global_attn_every == 0``); a decode step against a ring
+cache sees every written slot, with no window, global layers included.
+
+Caches, which prefill fills and decode steps update in place (the JAX
+package returns new arrays):
+- ``"kv"``: (k, v) of (L, B, C, Hkv, hd); with a sliding window a ring of
+  C = min(cache_len, window) slots, position p in slot p % C;
+- ``"mamba"`` (hybrid): (ssm state (L, B, d, N) float32, conv tail
+  (L, B, K - 1, d));
+- ``"enc_out"`` (audio, after prefill): the encoder output (B, F, d);
+- ``"states"`` (ssm, in place of all of these): the mLSTM (C, n, m) of
+  (n_rep, rep - 1, B, ...) and the sLSTM (c, n, h, m) of (n_rep, B, d).
 """
 from __future__ import annotations
 
@@ -26,94 +42,223 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from .config import ModelConfig
-from .layers import (Blocks, _dense_init, _param, apply_attention, apply_mlp,
+from .layers import (Attention, Mlp, Norms, Stack, _dense_init, _param,
+                     apply_attention, apply_cross_attention, apply_mlp,
                      block_norm, layer_norm_nonparametric, pdtype, rms_norm,
                      rope)
+from .moe import Moe, apply_moe
+from .ssm import (Mamba, Mlstm, Slstm, apply_mamba, apply_mlstm,
+                  apply_slstm, mlstm_state, slstm_state)
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet (slice 10 "
-            "of the port: the non-dense families and ring caches)")
+def _xlstm_pattern(cfg: ModelConfig) -> tuple[int, int]:
+    """(rep, n_rep): each of n_rep repetitions is rep - 1 mLSTM blocks and
+    one sLSTM block."""
+    rep = cfg.slstm_every or cfg.n_layers
+    if cfg.n_layers % rep:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not a "
+                         f"whole number of {rep}-block repetitions")
+    return rep, cfg.n_layers // rep
 
 
-class DenseLM(nn.Module):
+class LM(nn.Module):
     """embed (V_pad, d); head (d, V_pad) unless tied; final_norm (d,) unless
-    non-parametric; and the decoder ``blocks``.  Shapes and names follow the
-    JAX package's parameter tree."""
+    non-parametric; the decoder ``blocks``; with an encoder the ``encoder``
+    and ``cross`` stacks; with a frontend ``frontend_proj`` (d, d).  Shapes,
+    dtypes and names follow the JAX package's parameter tree."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        _require_dense(cfg)
         self.cfg = cfg
-        self.embed = _param((cfg.padded_vocab, cfg.d_model), cfg, device)
+        d, L = cfg.d_model, cfg.n_layers
+        self.embed = _param((cfg.padded_vocab, d), cfg, device)
         if not cfg.tie_embeddings:
-            self.head = _param((cfg.d_model, cfg.padded_vocab), cfg, device)
+            self.head = _param((d, cfg.padded_vocab), cfg, device)
         if not cfg.nonparametric_norm:
-            self.final_norm = _param((cfg.d_model,), cfg, device)
-        self.blocks = Blocks(cfg, device)
+            self.final_norm = _param((d,), cfg, device)
+        if cfg.family == "ssm":
+            rep, n_rep = _xlstm_pattern(cfg)
+            self.blocks = Stack(
+                mlstm=Mlstm(cfg, (n_rep, rep - 1), device) if rep > 1
+                else Stack(),
+                slstm=Slstm(cfg, (n_rep,), device),
+                norms=Norms(cfg, (n_rep, rep), device=device))
+        else:
+            mods = dict(attn=Attention(cfg, L, device),
+                        norms=Norms(cfg, (L,), device=device))
+            if cfg.family == "hybrid":
+                mods["mamba"] = Mamba(cfg, L, device)
+            if cfg.is_moe:
+                mods["moe"] = Moe(cfg, L, device)
+            else:
+                mods["mlp"] = Mlp(cfg, L, device)
+            self.blocks = Stack(**mods)
+        if cfg.encoder_layers:
+            e = cfg.encoder_layers
+            self.encoder = Stack(attn=Attention(cfg, e, device),
+                                 mlp=Mlp(cfg, e, device),
+                                 norms=Norms(cfg, (e,), device=device))
+            self.cross = Stack(attn=Attention(cfg, L, device),
+                               norms=Norms(cfg, (L,), 1, device=device))
+        if cfg.frontend is not None:
+            self.frontend_proj = _param((d, d), cfg, device)
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:
-        _dense_init(self.embed, self.cfg.d_model, gen)
+        d = self.cfg.d_model
+        _dense_init(self.embed, d, gen)
         if not self.cfg.tie_embeddings:
-            _dense_init(self.head, self.cfg.d_model, gen)
+            _dense_init(self.head, d, gen)
         if not self.cfg.nonparametric_norm:
             self.final_norm.fill_(1.0)
-        for mod in self.blocks.children():
+        for mod in self.children():
             mod.reset_parameters(gen)
+        if self.cfg.frontend is not None:
+            _dense_init(self.frontend_proj, d, gen)
+
+
+def _attn_axes(cfg: ModelConfig) -> dict:
+    axes = {"wq": ("layers", "embed", "heads", "head_dim"),
+            "wk": ("layers", "embed", "kv_heads", "head_dim"),
+            "wv": ("layers", "embed", "kv_heads", "head_dim"),
+            "wo": ("layers", "heads", "head_dim", "embed")}
+    if cfg.qk_norm:
+        axes["q_norm"] = axes["k_norm"] = ("layers", "head_dim")
+    return axes
+
+
+def _norm_axes(cfg: ModelConfig, n_norms: int = 2) -> dict:
+    return {} if cfg.nonparametric_norm else {
+        f"norm_{i}": ("layers", "embed") for i in range(n_norms)}
+
+
+MLP_AXES = {"wi_gate": ("layers", "embed", "mlp"),
+            "wi_up": ("layers", "embed", "mlp"),
+            "wo": ("layers", "mlp", "embed")}
+MAMBA_AXES = {"in_proj": ("layers", "embed", "mlp"),
+              "conv_w": ("layers", None, "mlp"),
+              "x_proj": ("layers", "embed", None),
+              "a_log": ("layers", "mlp", None),
+              "d_skip": ("layers", "mlp"),
+              "out_proj": ("layers", "mlp", "embed")}
+
+
+def _moe_axes(cfg: ModelConfig) -> dict:
+    emlp = "mlp" if cfg.moe_tp else "expert_mlp"
+    eax = None if cfg.moe_tp else "expert"
+    axes = {"router": ("layers", "embed", "expert"),
+            "w_gate": ("layers", eax, "embed", emlp),
+            "w_up": ("layers", eax, "embed", emlp),
+            "w_down": ("layers", eax, emlp, "embed")}
+    if cfg.n_shared_experts:
+        axes.update(shared_gate=("layers", "embed", "mlp"),
+                    shared_up=("layers", "embed", "mlp"),
+                    shared_down=("layers", "mlp", "embed"))
+    return axes
 
 
 def logical_axes(cfg: ModelConfig) -> dict:
     """The logical axis names of every parameter, keyed as the parameter
     tree (``repro_torch.convert.param_tree``): the JAX ``init_model``'s
-    ``axes`` for the dense family, which ``parallel/sharding.py`` maps onto
-    a mesh."""
-    _require_dense(cfg)
-    attn = {"wq": ("layers", "embed", "heads", "head_dim"),
-            "wk": ("layers", "embed", "kv_heads", "head_dim"),
-            "wv": ("layers", "embed", "kv_heads", "head_dim"),
-            "wo": ("layers", "heads", "head_dim", "embed")}
-    if cfg.qk_norm:
-        attn["q_norm"] = attn["k_norm"] = ("layers", "head_dim")
-    norms = {} if cfg.nonparametric_norm else {
-        f"norm_{i}": ("layers", "embed") for i in range(2)}
-    axes = {"embed": ("vocab", "embed"),
-            "blocks": {"attn": attn, "norms": norms,
-                       "mlp": {"wi_gate": ("layers", "embed", "mlp"),
-                               "wi_up": ("layers", "embed", "mlp"),
-                               "wo": ("layers", "mlp", "embed")}}}
+    ``axes``, which ``parallel/sharding.py`` maps onto a mesh."""
+    axes: dict = {"embed": ("vocab", "embed")}
     if not cfg.tie_embeddings:
         axes["head"] = ("embed", "vocab")
     if not cfg.nonparametric_norm:
         axes["final_norm"] = ("embed",)
+    if cfg.family == "ssm":
+        rep, _ = _xlstm_pattern(cfg)
+        mlstm = {} if rep == 1 else {
+            "wqkv": ("repeat", "layers", "embed", None, "heads", "head_dim"),
+            "wgates": ("repeat", "layers", "embed", None, "heads"),
+            "wo": ("repeat", "layers", "heads", "head_dim", "embed")}
+        axes["blocks"] = {
+            "mlstm": mlstm,
+            "slstm": {"wx": ("repeat", "embed", None, "mlp"),
+                      "wr": ("repeat", "embed", None, "mlp")},
+            "norms": {k: ("repeat",) + v
+                      for k, v in _norm_axes(cfg).items()}}
+        return axes
+    blocks = {"attn": _attn_axes(cfg), "norms": _norm_axes(cfg)}
+    if cfg.family == "hybrid":
+        blocks["mamba"] = dict(MAMBA_AXES)
+    if cfg.is_moe:
+        blocks["moe"] = _moe_axes(cfg)
+    else:
+        blocks["mlp"] = dict(MLP_AXES)
+    axes["blocks"] = blocks
+    if cfg.encoder_layers:
+        axes["encoder"] = {"attn": _attn_axes(cfg), "mlp": dict(MLP_AXES),
+                           "norms": _norm_axes(cfg)}
+        axes["cross"] = {"attn": _attn_axes(cfg),
+                         "norms": _norm_axes(cfg, 1)}
+    if cfg.frontend is not None:
+        axes["frontend_proj"] = ("embed", "embed")
     return axes
 
 
-def init_model(cfg: ModelConfig, *, seed: int = 0, device=None) -> DenseLM:
+def init_model(cfg: ModelConfig, *, seed: int = 0, device=None) -> LM:
     """A randomly initialised model on ``device`` (the card by default), its
     weights drawn there from a ``torch.Generator`` seeded with ``seed``.
     The draws differ from the JAX package's ``jax.random`` ones: to run
     both packages on the same weights, carry them across with
     ``repro_torch.convert.params_from_numpy``."""
     device = resolve_device(device)
-    model = DenseLM(cfg, device)
+    model = LM(cfg, device)
     model.reset_parameters(torch.Generator(device=device).manual_seed(seed))
     return model
 
 
 # ============================================================ body helpers
 
-def _dense_block(bp: dict, x, cfg: ModelConfig, *, positions, q_offset=0,
-                 kv_cache=None, cache_index=None, attention=flash_attention):
-    """One decoder block: attention and SwiGLU, each behind a norm."""
+def _layer_window(cfg: ModelConfig, lid: int) -> int | None:
+    """Layer ``lid``'s window in train and prefill: the config's, except on
+    a global layer of a windowed config with ``global_attn_every``."""
+    if cfg.sliding_window and cfg.global_attn_every \
+            and lid % cfg.global_attn_every == 0:
+        return None
+    return cfg.sliding_window
+
+
+def _dense_block(bp: dict, x, cfg: ModelConfig, *, positions, window=None,
+                 q_offset=0, kv_cache=None, cache_index=None,
+                 mamba_state=None, single_step=False, enc_out=None,
+                 cross_p=None, attention=flash_attention):
+    """One decoder block: attention (with hymba's mamba heads beside it),
+    whisper's cross-attention, then the MLP or the MoE, each behind a norm.
+    Returns (x, aux: the MoE's float32 router loss, else 0.0, the new
+    mamba state or None)."""
+    aux = 0.0
     h = block_norm(x, bp["norms"], 0, cfg)
-    x = x + apply_attention(bp["attn"], h, cfg, positions=positions,
-                            q_offset=q_offset, kv_cache=kv_cache,
-                            cache_index=cache_index, attention=attention)
+    attn_out = apply_attention(bp["attn"], h, cfg, positions=positions,
+                               window=window, q_offset=q_offset,
+                               kv_cache=kv_cache, cache_index=cache_index,
+                               attention=attention)
+    new_mamba = None
+    if cfg.family == "hybrid":
+        state, conv_state = mamba_state if mamba_state is not None \
+            else (None, None)
+        m_out, new_mamba = apply_mamba(bp["mamba"], h, cfg, state=state,
+                                       conv_state=conv_state,
+                                       single_step=single_step)
+        # hymba: parallel attention and mamba heads, averaged after each
+        # branch's normalization
+        attn_out = 0.5 * (rms_norm(attn_out, eps=cfg.norm_eps)
+                          + rms_norm(m_out, eps=cfg.norm_eps))
+    x = x + attn_out
+    if cross_p is not None:
+        if enc_out is None:
+            raise ValueError(f"{cfg.name}: cross-attention needs the "
+                             "encoder output (enc_out)")
+        h = block_norm(x, cross_p["norms"], 0, cfg)
+        x = x + apply_cross_attention(cross_p["attn"], h, enc_out,
+                                      attention=attention)
     h = block_norm(x, bp["norms"], 1, cfg)
-    return x + apply_mlp(bp["mlp"], h)
+    if cfg.is_moe:
+        ff, aux = apply_moe(bp["moe"], h, cfg)
+    else:
+        ff = apply_mlp(bp["mlp"], h)
+    return x + ff, aux, new_mamba
 
 
 class _EmbedLookup(torch.autograd.Function):
@@ -137,12 +282,20 @@ class _EmbedLookup(torch.autograd.Function):
         return one_hot.T @ grad.reshape(-1, grad.shape[-1]), None
 
 
-def embed_tokens(model: DenseLM, tokens):
+def embed_tokens(model: LM, tokens):
     x = _EmbedLookup.apply(model.embed, tokens)       # (B, S, d) gather
     return x * torch.tensor(model.cfg.d_model ** 0.5, dtype=x.dtype)
 
 
-def _final_logits(model: DenseLM, x):
+def _prepend_frontend(model: LM, x, frontend_embeds):
+    """vlm: project the stub patch embeddings (B, F, d) and put them before
+    the text, dropping the last F text positions so that S stays."""
+    fe = torch.einsum("bsd,de->bse", frontend_embeds.to(x.dtype),
+                      model.frontend_proj)
+    return torch.cat([fe, x[:, :x.shape[1] - fe.shape[1]]], dim=1)
+
+
+def _final_logits(model: LM, x):
     cfg = model.cfg
     if cfg.nonparametric_norm:
         x = layer_norm_nonparametric(x, cfg.norm_eps)
@@ -186,61 +339,175 @@ def _maybe_remat(fn, remat: str):
     raise ValueError(f"remat {remat!r}: one of none, block, full")
 
 
-def train_logits(model: DenseLM, tokens, *, remat: str | None = None,
-                 attention=flash_attention):
-    """tokens (B, S) -> (logits (B, S, V_pad) float32, aux).
+def _train_block(bp, cp, x, *, cfg, positions, window, enc_out, attention):
+    x, aux, _ = _dense_block(bp, x, cfg, positions=positions, window=window,
+                             enc_out=enc_out, cross_p=cp,
+                             attention=attention)
+    return x, aux
 
+
+def _encoder_layer(bp, x, *, cfg, positions, attention):
+    # The JAX encoder calls apply_attention with its default causal=True,
+    # which ropes q and k, and an all-zero mask: rope without causality.
+    h = block_norm(x, bp["norms"], 0, cfg)
+    x = x + apply_attention(bp["attn"], h, cfg, positions=positions,
+                            causal=False, attention=attention)
+    h = block_norm(x, bp["norms"], 1, cfg)
+    return x + apply_mlp(bp["mlp"], h)
+
+
+def _run_encoder(model: LM, frontend_embeds, *, remat: str = "none",
+                 attention=flash_attention):
+    """whisper's encoder: non-causal self-attention over the stub frame
+    embeddings (B, F, d), projected by ``frontend_proj``."""
+    cfg = model.cfg
+    if frontend_embeds is None:
+        raise ValueError(f"{cfg.name}: the encoder needs frontend "
+                         "embeddings (B, frames, d_model)")
+    x = frontend_embeds.to(pdtype(cfg))
+    if cfg.frontend is not None:
+        x = torch.einsum("bsd,de->bse", x, model.frontend_proj)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    layer = _maybe_remat(functools.partial(
+        _encoder_layer, cfg=cfg, positions=positions, attention=attention),
+        remat)
+    for bp in model.encoder.layers():
+        x = layer(bp, x)
+    return x
+
+
+def _xlstm_states(cfg: ModelConfig, batch: int, device=None):
+    rep, n_rep = _xlstm_pattern(cfg)
+    return (mlstm_state((n_rep, rep - 1), batch, cfg, device),
+            slstm_state((n_rep,), batch, cfg, device))
+
+
+def _xlstm_rep(bp, x, mst, sst, *, cfg):
+    """One repetition: rep - 1 mLSTM blocks then one sLSTM block, each a
+    residual behind its norm (xLSTM blocks carry no separate FFN)."""
+    rep, _ = _xlstm_pattern(cfg)
+    norm = bp["norms"]["norm_0"]
+    new = []
+    for i in range(rep - 1):
+        h = rms_norm(x, norm[i], cfg.norm_eps)
+        out, st = apply_mlstm({k: w[i] for k, w in bp["mlstm"].items()}, h,
+                              cfg, state=tuple(t[i] for t in mst))
+        x = x + out
+        new.append(st)
+    h = rms_norm(x, norm[rep - 1], cfg.norm_eps)
+    out, sst = apply_slstm(bp["slstm"], h, cfg, state=sst)
+    mst = tuple(torch.stack(z) for z in zip(*new)) if new else mst
+    return x + out, mst, sst
+
+
+def _run_xlstm(model: LM, x, states=None, *, remat: str = "none"):
+    """The xLSTM stack over x (B, S, d) from ``states`` (zeros if None);
+    returns (x, new states) in the layout of ``make_caches``."""
+    cfg = model.cfg
+    if states is None:
+        states = _xlstm_states(cfg, x.shape[0], x.device)
+    m_state, s_state = states
+    body = _maybe_remat(functools.partial(_xlstm_rep, cfg=cfg), remat)
+    new_m, new_s = [], []
+    for r, bp in enumerate(model.blocks.layers()):
+        x, mst, sst = body(bp, x, tuple(t[r] for t in m_state),
+                           tuple(t[r] for t in s_state))
+        new_m.append(mst)
+        new_s.append(sst)
+    return x, tuple(tuple(torch.stack(z) for z in zip(*per))
+                    for per in (new_m, new_s))
+
+
+def train_logits(model: LM, tokens, *, frontend_embeds=None,
+                 remat: str | None = None, attention=flash_attention):
+    """tokens (B, S) -> (logits (B, S, V_pad) float32, aux float32).
+
+    ``frontend_embeds`` (B, F, d): the VLM's patch embeddings, prepended
+    in place of the last F text positions, or the audio encoder's frames.
     Every block runs under ``remat`` (``cfg.remat`` unless given); pad
-    vocabulary columns are -1e30; ``aux`` is 0.0, the dense family having
-    no auxiliary loss.  ``attention`` is the attention core: the kernel's
-    wrapper, whose gradient is the plain ``attend``'s, or
-    ``layers.plain_attention`` to check it."""
+    vocabulary columns are -1e30; ``aux`` is the MoE router loss summed
+    over layers (0 for the other families).  ``attention`` is the
+    attention core: the kernel's wrapper, whose gradient is the plain
+    ``attend``'s, or ``layers.plain_attention`` to check it."""
     cfg = model.cfg
     s = tokens.shape[1]
+    remat = cfg.remat if remat is None else remat
     x = embed_tokens(model, tokens)
+    if cfg.family == "vlm" and frontend_embeds is not None:
+        x = _prepend_frontend(model, x, frontend_embeds)
+    aux = torch.zeros((), device=x.device)
+    if cfg.family == "ssm":
+        x = _run_xlstm(model, x, remat=remat)[0]
+        return _final_logits(model, x), aux
+    enc_out = _run_encoder(model, frontend_embeds, remat=remat,
+                           attention=attention) \
+        if cfg.encoder_layers else None
     positions = torch.arange(s, device=x.device)[None, :]
     block = _maybe_remat(functools.partial(
-        _dense_block, cfg=cfg, positions=positions, attention=attention),
-        cfg.remat if remat is None else remat)
-    for bp in model.blocks.layers():
-        x = block(bp, x)
-    return _final_logits(model, x), torch.zeros((), device=x.device)
+        _train_block, cfg=cfg, positions=positions, enc_out=enc_out,
+        attention=attention), remat)
+    cross = model.cross.layers() if cfg.encoder_layers \
+        else [None] * cfg.n_layers
+    for lid, (bp, cp) in enumerate(zip(model.blocks.layers(), cross)):
+        x, a = block(bp, cp, x, window=_layer_window(cfg, lid))
+        aux = aux + a
+    return _final_logits(model, x), aux
 
 
 # ======================================================== prefill / decode
 
 def make_caches(cfg: ModelConfig, batch: int, cache_len: int,
                 device=None) -> dict:
-    """Zeroed decode caches for the whole stack: (k, v) of
-    (L, B, C, Hkv, hd) in the parameter dtype."""
-    _require_dense(cfg)
-    if cfg.sliding_window is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: sliding-window ring caches are not ported yet "
-            "(slice 10 of the port: the non-dense families and ring caches)")
-    shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"kv": tuple(torch.zeros(shape, dtype=pdtype(cfg), device=device)
-                        for _ in range(2))}
+    """Zeroed decode caches for the whole stack (the module docstring's
+    layout); a sliding-window config gets a ring of min(cache_len, window)
+    slots."""
+    if cfg.family == "ssm":
+        return {"states": _xlstm_states(cfg, batch, device)}
+    dt = pdtype(cfg)
+    c = cache_len if cfg.sliding_window is None \
+        else min(cache_len, cfg.sliding_window)
+    shape = (cfg.n_layers, batch, c, cfg.n_kv_heads, cfg.head_dim)
+    caches = {"kv": tuple(torch.zeros(shape, dtype=dt, device=device)
+                          for _ in range(2))}
+    if cfg.family == "hybrid":
+        caches["mamba"] = (
+            torch.zeros((cfg.n_layers, batch, cfg.d_model, cfg.ssm_state),
+                        dtype=torch.float32, device=device),
+            torch.zeros((cfg.n_layers, batch, cfg.ssm_conv - 1, cfg.d_model),
+                        dtype=dt, device=device))
+    return caches
 
 
 @torch.no_grad()
-def prefill(model: DenseLM, tokens, cache_len: int, *,
+def prefill(model: LM, tokens, cache_len: int, *, frontend_embeds=None,
             attention=flash_attention):
     """Run the whole prompt (B, S); return (last-position logits (B, V_pad)
     float32, filled caches).  Each layer first fills its cache from the
     block input — its own K/V projection, k_norm and rope of the normed
-    input — and then runs the block with attention over the prompt alone,
-    the order of operations of the JAX package.  ``attention`` is the
-    attention core: the kernel's wrapper, or its plain version to check
-    the kernel against."""
+    input, the last C positions, rolled on a ring so that position p lands
+    in slot p % C — and then runs the block over the prompt alone with the
+    layer's mask, the order of operations of the JAX package.
+    ``frontend_embeds`` as for :func:`train_logits`; the audio encoder's
+    output is kept as ``caches["enc_out"]``.  ``attention`` is the
+    attention core: the kernel's wrapper, or its plain version to check the
+    kernel against."""
     cfg = model.cfg
     b, s = tokens.shape
     x = embed_tokens(model, tokens)
+    if cfg.family == "vlm" and frontend_embeds is not None:
+        x = _prepend_frontend(model, x, frontend_embeds)
+    if cfg.family == "ssm":
+        x, states = _run_xlstm(model, x)
+        return _final_logits(model, x[:, -1:])[:, 0], {"states": states}
+    enc_out = _run_encoder(model, frontend_embeds, attention=attention) \
+        if cfg.encoder_layers else None
     caches = make_caches(cfg, b, cache_len, x.device)
     ck, cv = caches["kv"]
+    mamba = caches.get("mamba")
     c = ck.shape[2]
     positions = torch.arange(s, device=x.device)[None, :]
     tail = slice(s - c, s) if s >= c else slice(0, s)
+    shift = (s - c) % c if cfg.sliding_window is not None and s >= c else 0
     for i in range(cfg.n_layers):
         bp = model.blocks.layer(i)
         h_in = block_norm(x, bp["norms"], 0, cfg)[:, tail]
@@ -249,24 +516,54 @@ def prefill(model: DenseLM, tokens, cache_len: int, *,
         if cfg.qk_norm:
             kh = rms_norm(kh, bp["attn"]["k_norm"], cfg.norm_eps)
         kh = rope(kh, positions[:, tail], cfg.rope_theta)
+        if shift:
+            kh, vh = torch.roll(kh, shift, 1), torch.roll(vh, shift, 1)
         ck[i, :, :kh.shape[1]] = kh.to(ck.dtype)
         cv[i, :, :vh.shape[1]] = vh.to(cv.dtype)
-        x = _dense_block(bp, x, cfg, positions=positions, q_offset=0,
-                         attention=attention)
+        x, _, new_m = _dense_block(
+            bp, x, cfg, positions=positions, window=_layer_window(cfg, i),
+            mamba_state=None if mamba is None else (mamba[0][i],
+                                                    mamba[1][i]),
+            enc_out=enc_out,
+            cross_p=model.cross.layer(i) if cfg.encoder_layers else None,
+            attention=attention)
+        if new_m is not None:
+            mamba[0][i], mamba[1][i] = new_m
+    if enc_out is not None:
+        caches["enc_out"] = enc_out
     return _final_logits(model, x[:, -1:])[:, 0], caches
 
 
 @torch.no_grad()
-def decode_step(model: DenseLM, token, caches: dict, index: int):
-    """One decode step: token (B, 1) at absolute position ``index``, which
-    is also its cache slot.  Attends to cache slots 0..index.  Returns
-    (logits (B, V_pad) float32, caches), the caches updated in place."""
+def decode_step(model: LM, token, caches: dict, index: int, *,
+                enc_out=None, attention=flash_attention):
+    """One decode step: token (B, 1) at absolute position ``index``.  Its
+    k/v go to slot ``index`` (on a ring, ``index % C``) and it attends to
+    the slots written so far, 0..index (on a ring, 0..min(index, C - 1):
+    every slot once the ring has wrapped), with no window.  ``enc_out``:
+    the audio encoder's output (``caches["enc_out"]`` after prefill).
+    Returns (logits (B, V_pad) float32, caches), the caches updated in
+    place (an ssm config's states are new tensors)."""
     cfg = model.cfg
     x = embed_tokens(model, token)
+    if cfg.family == "ssm":
+        x, states = _run_xlstm(model, x, caches["states"])
+        return _final_logits(model, x)[:, 0], {"states": states}
     positions = torch.full((1, 1), index, device=x.device)
     ck, cv = caches["kv"]
+    mamba = caches.get("mamba")
+    c = ck.shape[2]
+    slot, q_offset = (index, index) if cfg.sliding_window is None \
+        else (index % c, min(index, c - 1))
     for i in range(cfg.n_layers):
-        x = _dense_block(model.blocks.layer(i), x, cfg, positions=positions,
-                         q_offset=index, kv_cache=(ck[i], cv[i]),
-                         cache_index=index)
+        x, _, new_m = _dense_block(
+            model.blocks.layer(i), x, cfg, positions=positions,
+            q_offset=q_offset, kv_cache=(ck[i], cv[i]), cache_index=slot,
+            mamba_state=None if mamba is None else (mamba[0][i],
+                                                    mamba[1][i]),
+            single_step=True, enc_out=enc_out,
+            cross_p=model.cross.layer(i) if cfg.encoder_layers else None,
+            attention=attention)
+        if new_m is not None:
+            mamba[0][i], mamba[1][i] = new_m
     return _final_logits(model, x)[:, 0], caches

@@ -9,6 +9,20 @@ With a ``SimPagedKVCache`` the engine also mirrors every token's KV into
 SiM-indexed pages: each write is a block-table search on the SiM chip
 model, and a retiring sequence frees its pages with one §V-D partition
 search.
+
+Two cases where the JAX package's engine fails or goes wrong are refused
+here with a clear error:
+- The mirror pages position p's k/v from cache slot p.  A
+  sliding-window ring of C slots holds position p in slot p % C, and only
+  the last C positions: once the ring has wrapped, slot p holds a later
+  position, and for p >= C JAX's indexing clamps to slot C - 1.  Either
+  way JAX pages another position's k/v.  The port raises ``IndexError`` at
+  the first such mirror, after the writes before it (so the block table's
+  counters equal JAX's up to it).  An ssm config, which has no k/v at
+  all, is refused with a paged cache.
+- The engine passes no frontend embeddings, and an audio config's encoder
+  needs its frames: JAX fails in prefill, the port refuses the config.
+  Serve whisper through ``prefill`` and ``decode_step``.
 """
 from __future__ import annotations
 
@@ -18,7 +32,7 @@ from collections import deque
 
 import torch
 
-from repro_torch.models.model import DenseLM, decode_step, prefill
+from repro_torch.models.model import LM, decode_step, prefill
 
 
 @dataclasses.dataclass
@@ -53,10 +67,17 @@ class ServeEngine:
     Greedy decoding reads every argmax back to the host, so each of these
     clocks stops after the device work it times has finished."""
 
-    def __init__(self, model: DenseLM, *, max_slots: int = 4,
+    def __init__(self, model: LM, *, max_slots: int = 4,
                  cache_len: int = 256, paged_cache=None):
+        cfg = model.cfg
+        if cfg.encoder_layers:
+            raise ValueError(f"{cfg.name}: the engine passes no frontend "
+                             "embeddings, which the audio encoder needs; "
+                             "run prefill and decode_step with them")
+        if paged_cache is not None and cfg.family == "ssm":
+            raise ValueError(f"{cfg.name}: an ssm model has no k/v to page")
         self.model = model
-        self.cfg = model.cfg
+        self.cfg = cfg
         self.device = model.embed.device
         self.max_slots = max_slots
         self.cache_len = cache_len
@@ -95,10 +116,22 @@ class ServeEngine:
 
     def _mirror_prompt_kv(self, req: Request, caches: dict) -> None:
         """Mirror prefilled KV into the SiM-paged pool (per token)."""
-        ck, cv = caches["kv"]
         for pos in range(len(req.prompt)):
-            self.paged.write_token(req.req_id, pos,
-                                   ck[:, 0, pos], cv[:, 0, pos])
+            self._mirror(req.req_id, caches, pos, len(req.prompt))
+
+    def _mirror(self, req_id: int, caches: dict, pos: int,
+                length: int) -> None:
+        """Page position ``pos``'s k/v from cache slot ``pos``, of a cache
+        that holds the sequence's first ``length`` positions."""
+        ck, cv = caches["kv"]
+        c = ck.shape[2]
+        if pos >= c or length > pos + c:
+            raise IndexError(
+                f"{self.cfg.name}: slot {pos} of the {c}-slot ring cache "
+                f"does not hold position {pos} (the ring holds positions "
+                f"{max(length - c, 0)}..{length - 1}, position p in slot "
+                "p % C); the paged mirror reads slot = position")
+        self.paged.write_token(req_id, pos, ck[:, 0, pos], cv[:, 0, pos])
 
     def _retire(self, req_id: int, decode_s: float) -> None:
         slot = self.slots.pop(req_id)
@@ -117,17 +150,16 @@ class ServeEngine:
             t_dec = time.perf_counter()
             tok = torch.tensor([[slot.generated[-1]]], dtype=torch.int64,
                                device=self.device)
-            logits, slot.caches = decode_step(self.model, tok, slot.caches,
-                                              slot.position)
+            logits, slot.caches = decode_step(
+                self.model, tok, slot.caches, slot.position,
+                enc_out=slot.caches.get("enc_out"))
             nxt = int(torch.argmax(logits, dim=-1)[0])
             self.decodes += 1
             self.decode_s += time.perf_counter() - t_dec
             slot.generated.append(nxt)
             if self.paged is not None:
-                ck, cv = slot.caches["kv"]
-                self.paged.write_token(req_id, slot.position,
-                                       ck[:, 0, slot.position],
-                                       cv[:, 0, slot.position])
+                self._mirror(req_id, slot.caches, slot.position,
+                             slot.position + 1)
             slot.position += 1
             req = slot.request
             if (len(slot.generated) >= req.max_new_tokens

@@ -23,20 +23,23 @@ from torch.distributed.tensor import DTensor, Replicate
 from repro_torch.convert import nest, param_tree
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import DenseLM, train_logits
+from repro_torch.models.model import LM, train_logits
 from .optimizer import AdamWConfig, adamw_update
 
 AUX_WEIGHT = 0.01
 IGNORE = -1
 
 
-def lm_loss(model, tokens, labels, *, remat: str | None = None,
-            attention=flash_attention):
+def lm_loss(model, tokens, labels, *, frontend_embeds=None,
+            remat: str | None = None, attention=flash_attention):
     """Next-token cross entropy; positions with label == IGNORE are masked.
-    Returns ``(loss + AUX_WEIGHT * aux, (loss, aux))``.  The label's
+    Returns ``(loss + AUX_WEIGHT * aux, (loss, aux))``, ``aux`` the MoE
+    router loss (0 for the other families).  ``frontend_embeds``: the
+    VLM's patch embeddings or the audio encoder's frames.  The label's
     log-probability is picked by a one-hot mask, not a gather, whose
     backward scatters with atomics on the card."""
-    logits, aux = train_logits(model, tokens, remat=remat,
+    logits, aux = train_logits(model, tokens,
+                               frontend_embeds=frontend_embeds, remat=remat,
                                attention=attention)
     lp = torch.log_softmax(logits.float(), dim=-1)
     safe = labels.clamp(min=0).long()
@@ -47,23 +50,40 @@ def lm_loss(model, tokens, labels, *, remat: str | None = None,
     return loss + AUX_WEIGHT * aux, (loss, aux)
 
 
-def value_and_grad(model, tokens, labels, *, microbatches: int = 1,
-                   remat: str | None = None, attention=flash_attention):
+def unread_parameters(cfg: ModelConfig) -> frozenset:
+    """Parameters the loss never reads, which get a zero gradient as under
+    ``jax.grad``: the xLSTM stack keeps the JAX tree's ``norm_1``, but its
+    blocks carry no separate FFN to put behind it."""
+    return frozenset({"blocks.norms.norm_1"} if cfg.family == "ssm"
+                     else ())
+
+
+def value_and_grad(model, tokens, labels, *, frontend_embeds=None,
+                   microbatches: int = 1, remat: str | None = None,
+                   attention=flash_attention):
     """``((loss, aux), grads)``: :func:`lm_loss` and its gradient with
     respect to every parameter, keyed by parameter name (autograd's, the
-    parameters' own dtype).  With ``microbatches`` > 1 the batch is split
-    along its first axis, the gradients summed in float32 and everything
-    averaged, as the JAX step's ``fori_loop``."""
+    parameters' own dtype).  With ``microbatches`` > 1 the batch (and
+    ``frontend_embeds``) is split along its first axis, the gradients
+    summed in float32 and everything averaged, as the JAX step's
+    ``fori_loop``."""
     model.requires_grad_(True)
     names, params = zip(*model.named_parameters())
+    unread = unread_parameters(model.cfg)
+    read = [p for n, p in zip(names, params) if n not in unread]
 
-    def one(tok, lab):
-        total, (loss, aux) = lm_loss(model, tok, lab, remat=remat,
-                                     attention=attention)
-        return loss.detach(), aux.detach(), torch.autograd.grad(total, params)
+    def one(tok, lab, fe):
+        total, (loss, aux) = lm_loss(model, tok, lab, frontend_embeds=fe,
+                                     remat=remat, attention=attention)
+        # every parameter the config reads must reach the loss: autograd
+        # raises for one that dropped out of the graph
+        grads = iter(torch.autograd.grad(total, read))
+        return loss.detach(), aux.detach(), [
+            torch.zeros_like(p) if n in unread else next(grads)
+            for n, p in zip(names, params)]
 
     if microbatches == 1:
-        loss, aux, grads = one(tokens, labels)
+        loss, aux, grads = one(tokens, labels, frontend_embeds)
         return (loss, aux), dict(zip(names, grads))
     b = tokens.shape[0]
     if b % microbatches:
@@ -73,7 +93,8 @@ def value_and_grad(model, tokens, labels, *, microbatches: int = 1,
     loss = aux = torch.zeros((), device=tokens.device)
     for i in range(microbatches):
         sl = slice(i * mb, (i + 1) * mb)
-        l, a, g = one(tokens[sl], labels[sl])
+        l, a, g = one(tokens[sl], labels[sl], None if frontend_embeds is None
+                      else frontend_embeds[sl])
         acc = [x + y for x, y in zip(acc, g)]
         loss, aux = loss + l, aux + a
     grads = {n: g / microbatches for n, g in zip(names, acc)}
@@ -101,9 +122,11 @@ def _data_parallel_grads(model, compute, batch, mesh, microbatches):
     with torch.no_grad():
         for name, q in compute.named_parameters():
             q.copy_(params[name].full_tensor())
-    tokens, labels = (batch[k].to_local() if isinstance(batch[k], DTensor)
-                      else batch[k] for k in ("tokens", "labels"))
+    tokens, labels, fe = (
+        batch[k].to_local() if isinstance(batch.get(k), DTensor)
+        else batch.get(k) for k in ("tokens", "labels", "frontend"))
     (loss, aux), grads = value_and_grad(compute, tokens, labels,
+                                        frontend_embeds=fe,
                                         microbatches=microbatches)
     count = (labels != IGNORE).sum().float()
     total = count.clone()
@@ -131,8 +154,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
 
     ``grad_transform(grads) -> grads`` hook (a tree keyed as the parameter
     tree): the compression stage (or any distributed-optimization trick)
-    plugs in here.  ``batch`` is ``{"tokens", "labels"}``, DTensors sharded
-    by ``parallel.sharding.batch_sharding`` when the model is sharded.
+    plugs in here.  ``batch`` is ``{"tokens", "labels"}`` and, for the VLM
+    and audio families, ``"frontend"`` (B, F, d) embeddings; DTensors
+    sharded by ``parallel.sharding.batch_sharding`` when the model is
+    sharded.
     """
     compute: dict = {}      # sharded model -> its local full-weight copy
 
@@ -141,11 +166,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
         if mesh is None:
             (loss, aux), grads = value_and_grad(
                 model, batch["tokens"], batch["labels"],
+                frontend_embeds=batch.get("frontend"),
                 microbatches=microbatches)
         else:
             if id(model) not in compute:
                 compute.clear()
-                compute[id(model)] = DenseLM(
+                compute[id(model)] = LM(
                     cfg, model.embed.to_local().device)
             (loss, aux), grads = _data_parallel_grads(
                 model, compute[id(model)], batch, mesh, microbatches)

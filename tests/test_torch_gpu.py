@@ -1309,3 +1309,122 @@ def test_double_launch_trips_sim101_on_card(monkeypatch):
     bad = {f.symbol for f in findings
            if f.slug == "kernel-count:sim_search_chips"}
     assert bad >= {"search-cold", "search-warm"}
+
+
+# The non-dense families and ring caches, reduced, in float32: arch ->
+# config overrides.  Windowed configs keep an 8-slot ring (window 8).
+FAMILIES = {"hymba-1.5b": {}, "mixtral-8x22b": {}, "kimi-k2-1t-a32b": {},
+            "xlstm-350m": {}, "internvl2-26b": {}, "whisper-medium": {},
+            "qwen3-4b": dict(sliding_window=8)}
+
+
+def _family(arch, dev):
+    cfg = dataclasses.replace(reduced_config(get_config(arch)),
+                              dtype="float32", **FAMILIES[arch])
+    model = init_model(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    n = {"vision_stub": cfg.frontend_tokens,
+         "audio_stub": cfg.encoder_seq}.get(cfg.frontend)
+    fe = None if n is None else torch.randn(2, n, cfg.d_model, device=dev,
+                                            generator=gen)
+    return cfg, model, fe
+
+
+def _attention_layers(cfg, decode: bool) -> int:
+    """flash_attention launches a prefill (decode step) makes: one a
+    decoder layer; whisper adds a cross-attention a layer and, in prefill,
+    an encoder layer each."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.encoder_layers:
+        return 2 * cfg.n_layers + (0 if decode else cfg.encoder_layers)
+    return cfg.n_layers
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", list(FAMILIES))
+def test_families_on_card_kernel_matches_plain(arch):
+    """Prefill of 11 tokens (past the 8-slot rings) and 6 decode steps
+    (crossing the wrap; whisper's decode through cross-attention) through
+    the kernel, teacher-forced against the same steps with the plain
+    attention on the card: logits and caches within 1e-4, the kernel
+    launched exactly once an attention."""
+    from repro_torch.models.model import decode_step, prefill
+    dev = _cuda_or_skip()
+    cfg, model, fe = _family(arch, dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 11), device=dev,
+                           generator=gen)
+    native.reset_launches()
+    got, caches = prefill(model, tokens, 32, frontend_embeds=fe)
+    assert native.LAUNCHES["flash_attention"] == _attention_layers(cfg, False)
+    want, pcaches = prefill(model, tokens, 32, frontend_embeds=fe,
+                            attention=plain_attention)
+    for step in range(6):
+        rel = float((got - want).norm() / want.norm())
+        assert torch.isfinite(got[:, :cfg.vocab_size]).all() and rel < 1e-4
+        tok = want.argmax(-1)[:, None]
+        native.reset_launches()
+        got, caches = decode_step(model, tok, caches, 11 + step,
+                                  enc_out=caches.get("enc_out"))
+        assert native.LAUNCHES["flash_attention"] == _attention_layers(
+            cfg, True)
+        want, pcaches = decode_step(model, tok, pcaches, 11 + step,
+                                    enc_out=pcaches.get("enc_out"),
+                                    attention=plain_attention)
+    for a, b in zip(caches.get("kv", ()), pcaches.get("kv", ())):
+        assert float((a - b).abs().max()) < 1e-4
+
+
+@pytest.mark.gpu
+def test_whisper_cross_attention_on_card_matches_plain():
+    """Cross-attention decode (Sq = 1 over the encoder's frames, not
+    causal, Sk not a multiple of the kernel's key steps) on the card."""
+    from repro_torch.models.layers import apply_cross_attention
+    dev = _cuda_or_skip()
+    cfg, model, _ = _family("whisper-medium", dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(2, 1, cfg.d_model, device=dev, generator=gen)
+    enc = torch.randn(2, 37, cfg.d_model, device=dev, generator=gen)
+    p = model.cross.layer(0)["attn"]
+    with torch.no_grad():
+        got = apply_cross_attention(p, x, enc)
+        want = apply_cross_attention(p, x, enc, attention=plain_attention)
+    assert float((got - want).abs().max()) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", list(FAMILIES))
+def test_family_train_step_on_card(arch):
+    """One reduced train step a family on the card (remat block): the
+    kernel launched twice an attention (forward and recompute), finite
+    loss, and the step's loss and gradients within 1e-4 of the same step
+    with the plain attention."""
+    dev = _cuda_or_skip()
+    cfg, model, fe = _family(arch, dev)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=2,
+                      seed=0)
+    batch = batch_at_step(data, 0, device=dev)
+    if fe is not None:
+        batch["frontend"] = fe
+    opt_cfg = AdamWConfig(lr=1e-3)
+    native.reset_launches()
+    (loss, _), grads = value_and_grad(model, batch["tokens"],
+                                      batch["labels"], frontend_embeds=fe,
+                                      remat="block")
+    assert native.LAUNCHES["flash_attention"] == 2 * _attention_layers(
+        cfg, False)
+    (ploss, _), pgrads = value_and_grad(model, batch["tokens"],
+                                        batch["labels"], frontend_embeds=fe,
+                                        remat="block",
+                                        attention=plain_attention)
+    assert np.isfinite(float(loss))
+    assert abs(float(loss) - float(ploss)) < 1e-4
+    for name, t in grads.items():
+        ref = pgrads[name]
+        assert torch.isfinite(t).all(), name
+        assert float((t - ref).norm()) <= 1e-4 * max(float(ref.norm()),
+                                                     1e-30), name
+    state = init_opt_state(param_tree(model), opt_cfg)
+    model, _, m = make_train_step(cfg, opt_cfg)(model, state, batch)
+    assert np.isfinite(float(m["loss"]))

@@ -35,7 +35,7 @@ from repro_torch import configs
 from repro_torch.convert import param_tree, params_to_numpy, tree_items
 from repro_torch.launch.mesh import production_mesh_spec
 from repro_torch.launch.train import train
-from repro_torch.models.model import DenseLM, init_model, logical_axes
+from repro_torch.models.model import LM, init_model, logical_axes
 from repro_torch.parallel.compression import (compress_stacked,
                                               compressed_psum_pod,
                                               init_error_state,
@@ -49,7 +49,7 @@ from repro_torch.train.optimizer import AdamWConfig, init_opt_state
 from repro_torch.train.train_step import make_train_step
 
 REPO = Path(__file__).resolve().parents[1]
-ARCHS = ("granite-3-8b", "qwen3-4b", "olmo-1b", "starcoder2-7b")
+ARCHS = tuple(sorted(configs.ARCHS))       # all 10, every family
 MESHES = {"2x2": ((2, 2), ("data", "model")),
           "2x2x2": ((2, 2, 2), ("pod", "data", "model"))}
 SUBPROCESS_S = 600
@@ -151,7 +151,7 @@ def test_spec_for_matches_jax_partition_specs(jax_specs, name, mesh_name):
     placements and the replicated-dimension report equal the JAX specs."""
     cfg = _port_cfg(name)
     mesh = _mesh(mesh_name)
-    params = param_tree(DenseLM(cfg, torch.device("meta")))
+    params = param_tree(LM(cfg, torch.device("meta")))
     axes = logical_axes(cfg)
     want = jax_specs[name][mesh_name]
     report = []

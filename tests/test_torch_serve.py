@@ -99,23 +99,40 @@ def test_params_round_trip_bit_for_bit():
         params_from_numpy({"embed": tree["embed"]}, cfg, device="cpu")
 
 
-def test_port_init_follows_the_jax_init():
+@pytest.mark.parametrize("case", [
+    "granite-3-8b-padded", "hymba-1.5b", "mixtral-8x22b", "kimi-k2-1t-a32b",
+    "xlstm-350m", "internvl2-26b", "whisper-medium"])
+def test_port_init_follows_the_jax_init(case):
     """The port's own random init draws other numbers, with the same
-    shapes, dtypes, norms of ones and zeroed padded heads."""
-    jcfg, cfg = _configs("granite-3-8b-padded")
+    shapes, dtypes (the router and recurrent gates float32 in a bf16
+    model), spreads, norms of ones, mamba's a_log and d_skip, and zeroed
+    padded heads; for every family."""
+    if case in ARCH_CASES:
+        jcfg, cfg = _configs(case)
+    else:
+        jcfg, cfg = (reduced_config(ARCHS[case]),
+                     configs.reduced_config(configs.ARCHS[case]))
     jtree = jax.tree.map(np.asarray, jinit(jax.random.PRNGKey(0), jcfg)[0])
     tree = params_to_numpy(init_model(cfg, seed=0, device="cpu"))
+    assert jax.tree.structure(tree) == jax.tree.structure(jtree)
     for (path, a), b in zip(jax.tree_util.tree_leaves_with_path(jtree),
                             jax.tree.leaves(tree)):
         assert (a.shape, a.dtype) == (b.shape, b.dtype), path
+        a, b = a.astype(np.float32), b.astype(np.float32)
         assert np.allclose(a.std(), b.std(), rtol=0.2), path
-    for name in ("q_norm", "k_norm", "norm_0", "norm_1"):
-        sub = tree["blocks"]["norms" if name.startswith("norm") else "attn"]
-        if name in sub:
-            assert (sub[name] == 1).all()
-    pad = np.arange(cfg.padded_heads) % (cfg.padded_heads // 4) >= 3
-    assert not tree["blocks"]["attn"]["wq"][:, :, pad].any()
-    assert not tree["blocks"]["attn"]["wo"][:, pad].any()
+    for path, b in jax.tree_util.tree_leaves_with_path(tree):
+        name = path[-1].key
+        if name.startswith("norm_") or name in ("q_norm", "k_norm",
+                                                "final_norm", "d_skip"):
+            assert (b == 1).all(), path
+        if name == "a_log":
+            np.testing.assert_allclose(
+                b, np.broadcast_to(np.log(np.arange(1, cfg.ssm_state + 1)),
+                                   b.shape), rtol=1e-6)
+    if cfg.padded_heads != cfg.n_heads:
+        pad = np.arange(cfg.padded_heads) % (cfg.padded_heads // 4) >= 3
+        assert not tree["blocks"]["attn"]["wq"][:, :, pad].any()
+        assert not tree["blocks"]["attn"]["wo"][:, pad].any()
 
 
 def test_prefill_and_decode_match_jax(models):
@@ -229,13 +246,16 @@ def test_launch_serve_matches_the_jax_launcher(jit_engine, capsys):
 
 
 def test_other_families_and_ring_caches_are_not_ported_yet():
+    """Once refused, now ported: every other family inits, and a windowed
+    config gets a ring of min(cache_len, window) slots (the parity of both
+    is held in tests/test_torch_families*.py)."""
     for arch in ("mixtral-8x22b", "xlstm-350m", "hymba-1.5b",
                  "internvl2-26b", "whisper-medium"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            init_model(configs.reduced_config(configs.get_config(arch)),
-                       device="cpu")
+        cfg = configs.reduced_config(configs.get_config(arch))
+        model = init_model(cfg, device="cpu")
+        assert model.cfg.family == cfg.family != "dense"
     windowed = dataclasses.replace(
         configs.reduced_config(configs.get_config("qwen3-4b")),
         sliding_window=8)
-    with pytest.raises(NotImplementedError, match="ring caches"):
-        make_caches(windowed, 1, 16)
+    assert [t.shape[2] for t in make_caches(windowed, 1, 16)["kv"]] == [8, 8]
+    assert [t.shape[2] for t in make_caches(windowed, 1, 4)["kv"]] == [4, 4]
