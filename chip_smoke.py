@@ -148,11 +148,29 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    within 5e-2 relative L2 of the plain run's or, at a step beyond it,
    within 1.5x the largest distance between reference runs there
    (``attention_ref``, the float64 attention, seeded dithers of it).
-9. One JSON line of the kernels, their launches and times.
-10. The card's ``nvidia-smi`` name and power limit, then the last line:
+9. The dry run against the card.  Two check cells at their own shapes
+   with no mesh, as phases 6-7 run them: olmo-1b's training step (8 x 512
+   tokens, remat ``block``) and one qwen3-4b decode step (batch 1, a
+   128-slot cache).  Each step is traced on meta tensors by
+   ``repro_torch.launch.dryrun.lower_cell``, then built on the card with
+   random weights and run once under the same counter: dot FLOPs, bytes
+   accessed, result bytes and op count equal exactly, the traced peak
+   within 10 % of ``torch.cuda.max_memory_allocated`` (less what lives
+   on the card beside the step's inputs), and the median of the timed
+   steps no faster than the roofline's bound; the roofline fraction and
+   MFU printed.  The attention op's dispatch cost at the decode shape.
+   Then ``run_cell`` of olmo-1b ``train_4k`` and qwen3-4b ``decode_32k``
+   on the single-pod mesh (256 fake ranks): status ``ok``, the dominant
+   term printed.  Then ``repro_torch.range_query_analytics.main()`` equal
+   to its CPU run number for number, one ``sim_plan`` and one
+   ``sim_gather`` launch a select, and ``repro_torch.serve_lm.main()``
+   completing every request with the CPU run's completions, tokens and
+   searches.
+10. One JSON line of the kernels, their launches and times.
+11. The card's ``nvidia-smi`` name and power limit, then the last line:
     ``{"ok": true, "device": {...}}``.
 
-The launch counts are set to 0 just before each path of phases 3–8 and read
+The launch counts are set to 0 just before each path of phases 3–9 and read
 just after it; they show which kernels ran on that path. The replay scale
 is 20% of the paper's 650 MiB index: 16,384 key pages and 16,384 value
 pages of 4 KiB on 16 chips, for every replay path, the sharded and reliable
@@ -181,7 +199,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch import database_index, quickstart  # noqa: E402
+from repro_torch import (database_index, quickstart,  # noqa: E402
+                         range_query_analytics, serve_lm)
 from repro_torch.analysis import __main__ as auditor  # noqa: E402
 from repro_torch.analysis.conservation import (  # noqa: E402
     audit_books, make_metered_timeline)
@@ -239,8 +258,16 @@ from repro_torch.kernels.timing import (ARENA_ROWS,  # noqa: E402
                                         ITERS as COLD_ITERS, cold_ms,
                                         device_ms, planted_lookup_queries,
                                         random_arena, row_sets)
+from repro_torch.launch.roofline import (F32_FLOPS, HBM_BW,  # noqa: E402
+                                         INT32_OPS, PEAK_FLOPS,
+                                         attention_flops, attention_pairs)
 from repro_torch.launch.serve import requests, serve  # noqa: E402
+from repro_torch.launch.dryrun import (build_step, lower_cell,  # noqa: E402
+                                       run_cell)
+from repro_torch.launch.roofline import analyze, model_flops  # noqa: E402
+from repro_torch.launch.trace_analysis import count  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
+from repro_torch.models.config import InputShape  # noqa: E402
 from repro_torch.convert import nest, param_tree  # noqa: E402
 from repro_torch.models import moe as moe_module  # noqa: E402
 from repro_torch.models.layers import (block_norm,  # noqa: E402
@@ -264,17 +291,10 @@ from repro_torch.serve.batching import Request, ServeEngine  # noqa: E402
 from repro_torch.serve.kvcache import PagedStats, SimPagedKVCache  # noqa: E402
 from repro_torch.workload.ycsb import KEYS_PER_PAGE, generate  # noqa: E402
 
-# H100 SXM peaks at the 700 W power limit: HBM3 at 3.35 TB/s (NVIDIA data
-# sheet), and 32-bit integer add, compare, logic and shift at 64 results
-# per SM per clock for compute capability 9.0 (CUDA C++ Programming Guide,
-# "Arithmetic Instructions" throughput table): 132 SMs x 64 x 1.98 GHz
-# boost.  Integer multiplies are counted at the same rate.
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# Dense tensor-core peaks of the H100 SXM (NVIDIA data sheet): the bound of
-# an attention launch counts its multiply-adds at the rate of its type.
-BF16_FLOPS_PER_S = 989e12
-F32_FLOPS_PER_S = 67e12          # float32 outside the tensor cores
+# The H100's peaks (HBM bytes/s, 32-bit integer ops/s, bf16 and float32
+# FLOP/s) come from repro_torch.launch.roofline, with their sources; the
+# bound of an attention launch counts its multiply-adds at the rate of its
+# type.
 # 32-bit operations of the §IV-C1 stream for one slot: counter (3) + two
 # mix2_32 of 17 each + XOR into the lo and hi words (2).
 STREAM_OPS = 39
@@ -984,16 +1004,17 @@ def attn_keep(shape, kw):
 
 def attn_bound(dtype, shape, kw):
     """The multiply-adds of the visible (query, key) pairs of QK^T and PV at
-    the dtype's peak, against q and the output once and the k/v rows some
-    row sees once."""
+    the dtype's peak (the count the kernel's flop formula gives), against q
+    and the output once and the k/v rows some row sees once."""
     b, sq, sk, h, hkv, d = shape
-    keep = attn_keep(shape, kw)
+    masks = dict(causal=kw.get("causal", True), window=kw.get("window"),
+                 q_offset=kw.get("q_offset"))
+    _, seen = attention_pairs(sq, sk, **masks)
     es = torch.finfo(dtype).bits // 8
-    flops = 4 * b * h * int(keep.sum()) * d
-    nbytes = es * (2 * b * h * sq * d + 2 * b * hkv * int(keep.any(0).sum())
-                   * d)
-    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
-    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+    flops = attention_flops(b, sq, sk, h, d, **masks)
+    nbytes = es * (2 * b * h * sq * d + 2 * b * hkv * seen * d)
+    peak = PEAK_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BW
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -1053,7 +1074,7 @@ def attention_checks(dev, floor_ms) -> dict:
 
 
 def bound(ops, nbytes):
-    t_ops, t_bytes = ops / INT32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    t_ops, t_bytes = ops / INT32_OPS, nbytes / HBM_BW
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -3857,6 +3878,193 @@ def families_phase(dev) -> dict:
     return total
 
 
+# ------------------------------------ phase 9: the dry run against the card
+# The check cells, each at its own shape with no mesh, as phases 6-7 run
+# them: olmo-1b's training step (8 x 512, remat block) and one qwen3-4b
+# decode step of the serve path (batch 1, a 128-slot cache, position 127).
+CHECK_CELLS = (("olmo-1b", InputShape("check_train", "train", TRAIN_SEQ,
+                                      TRAIN_BATCH)),
+               (SERVE_ARCH, InputShape("check_decode", "decode",
+                                       SERVE_CACHE_LEN, 1)))
+CHECK_STEPS = {"train": 3, "decode": 20}     # timed steps after the counted
+PEAK_TOL = 0.10
+# The production cells traced on the single-pod mesh.
+PRODUCTION_CELLS = (("olmo-1b", "train_4k"), ("qwen3-4b", "decode_32k"))
+
+
+def check_cell(arch, shape, dev) -> dict:
+    """One check cell: its step traced on meta tensors (``lower_cell``),
+    then the same step built on the card with random weights and run once
+    under the same counter, then timed.  The counts must be equal, the
+    traced peak within PEAK_TOL of the allocator's peak (less what was
+    live on the card beside the step's inputs), and the median step no
+    faster than the roofline's bound."""
+    cfg = get_config(arch)
+    traced, report = lower_cell(cfg, shape)
+    rl = analyze(traced, 1)
+    start_run()
+    cell = build_step(cfg, shape, device=dev)
+    cell.inputs[0].reset_parameters(
+        torch.Generator(device=dev).manual_seed(0))
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launches()
+    before = torch.cuda.memory_allocated()
+    _, ran = count(cell.step, *cell.inputs, device_type="cuda")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counted = dict(native.LAUNCHES)
+    if ran.key() != traced.key():
+        raise AssertionError(f"{arch} {shape.mode}: the trace counts "
+                             f"{traced} but the card's run {ran}")
+    if ran.peak_bytes != traced.peak_bytes:
+        raise AssertionError(f"{arch} {shape.mode}: traced peak "
+                             f"{traced.peak_bytes}, the run's storages "
+                             f"{ran.peak_bytes}")
+    beside = before - ran.start_bytes
+    card_peak = peak - beside
+    if abs(card_peak - traced.peak_bytes) > PEAK_TOL * traced.peak_bytes:
+        raise AssertionError(f"{arch} {shape.mode}: traced peak "
+                             f"{traced.peak_bytes}, the allocator's "
+                             f"{card_peak} ({peak} less {beside} beside)")
+    want = cfg.n_layers * (2 if shape.mode == "train" else 1)
+    if counted["flash_attention"] != want or sum(counted.values()) != want:
+        raise AssertionError(f"{arch} {shape.mode}: launches {counted}")
+    times = []
+    for _ in range(CHECK_STEPS[shape.mode]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cell.run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_s = sorted(times)[len(times) // 2]
+    grew = dict(native.LAUNCHES)
+    if step_s < rl.bound_s:
+        raise AssertionError(f"{arch} {shape.mode}: a step of {step_s} s "
+                             f"beats its bound {rl.bound_s} s")
+    mflops = model_flops(cfg, shape)
+    log(f"dry run check {arch} {shape.mode} (B={shape.global_batch}, "
+        f"S={shape.seq_len}): traced in {report['trace_s']} s on meta "
+        f"tensors; trace = card run: {traced.n_ops} ops, dot FLOPs "
+        f"{traced.dot_flops}, bytes accessed {traced.bytes_accessed}, result "
+        f"bytes {traced.result_bytes}; peak traced {traced.peak_bytes} B, "
+        f"allocator {card_peak} B ({peak} less {beside} live beside the "
+        f"step's inputs; {card_peak / traced.peak_bytes - 1:+.4f}); terms "
+        f"compute {rl.compute_s * 1e3:.6f} ms, memory "
+        f"{rl.memory_s * 1e3:.6f} ms, bound {rl.bound_s * 1e3:.6f} ms "
+        f"({rl.dominant}); median step ({len(times)}) "
+        f"{step_s * 1e3:.3f} ms; launches {counted} counted, {grew} "
+        f"with the timed steps")
+    log(f"dry run check {arch} {shape.mode}: roofline_fraction "
+        f"{rl.roofline_fraction(mflops):.6f} (model FLOPs {mflops}); MFU "
+        f"{mflops / (step_s * PEAK_FLOPS):.6f}; step / bound "
+        f"{step_s / rl.bound_s:.3f}")
+    del cell
+    return grew
+
+
+def dispatch_cost(dev) -> None:
+    """Host time of the attention op's dispatch: the custom op beside its
+    Python body called directly, at the serve path's decode shape (a
+    launch-bound call, timed on the host clock to a synchronize)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    _, dtype, shape, kw = ATTN_TIMED
+    q, k, v = attn_inputs(dev, dtype, shape, 3)
+    args = (q, k, v, True, None, shape[5] ** -0.5, kw["q_offset"])
+    body = flash_ops.launch_kernel
+    out = {}
+    for label in ("op", "body", "op", "body"):
+        fn = flash_ops._launch if label == "op" else body
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn(*args)
+        torch.cuda.synchronize()
+        out.setdefault(label, []).append((time.perf_counter() - t0) / 200)
+    op_us, body_us = (1e6 * min(out[k]) for k in ("op", "body"))
+    cfg = get_config(SERVE_ARCH)
+    log(f"attention dispatch [{shape}]: the custom op {op_us:.3f} us a "
+        f"call, its body alone {body_us:.3f} us (in turns, best of two); "
+        f"{op_us - body_us:.3f} us more a call, "
+        f"{cfg.n_layers * (op_us - body_us) / 1e3:.4f} ms a "
+        f"{cfg.n_layers}-layer decode step")
+
+
+def production_cells() -> None:
+    """``run_cell`` of the production cells on the single-pod mesh (a fake
+    world of 256 ranks, meta tensors): each must report ``ok``."""
+    for arch, shape in PRODUCTION_CELLS:
+        rep = run_cell(arch, shape, "single")
+        if rep.get("status") != "ok":
+            raise AssertionError(f"dry run {arch} {shape}: {rep}")
+        rl = rep["roofline"]
+        log(f"dry run {arch} {shape} single ({rep['mesh']}): dominant "
+            f"{rl['dominant']}; compute {rl['compute_s']:.6f} s, memory "
+            f"{rl['memory_s']:.6f} s, collective {rl['collective_s']:.6f} s; "
+            f"peak {rl['peak_bytes']} B a device (fits "
+            f"{rep['memory_analysis']['fits']}); roofline_fraction "
+            f"{rep['roofline_fraction']:.6f}; traced in {rep['trace_s']} s")
+
+
+def range_example_path() -> dict:
+    """``range_query_analytics.main()`` on the card against the CPU run,
+    number for number; one ``sim_plan`` and one ``sim_gather`` launch a
+    select."""
+    native.reset_launches()
+    card = range_query_analytics.main()
+    torch.cuda.synchronize()
+    grew = dict(native.LAUNCHES)
+    cpu = range_query_analytics.main(device="cpu")
+    if card != cpu:
+        raise AssertionError(f"range example: card {card}, cpu {cpu}")
+    if (grew["sim_plan"], grew["sim_gather"]) != (3, 3) or \
+            sum(grew.values()) != 6:
+        raise AssertionError(f"range example launched {grew}")
+    log(f"range_query_analytics on the card equals the CPU run; launches "
+        f"{grew} (one sim_plan and one sim_gather a select)")
+    return grew
+
+
+def serve_example_path() -> dict:
+    """``serve_lm.main()`` on the card: every request completes, and the
+    completions, tokens generated and block-table searches equal the CPU
+    run's."""
+    native.reset_launches()
+    card = serve_lm.main([])
+    torch.cuda.synchronize()
+    grew = dict(native.LAUNCHES)
+    cpu = serve_lm.main(["--device", "cpu"])
+    reqs = requests(12, reduced_config(get_config(SERVE_ARCH)).vocab_size, 0)
+    check_completed("serve_lm", reqs, card["completions"])
+    shape = {c.req_id: len(c.tokens) for c in card["completions"]}
+    if shape != {c.req_id: len(c.tokens) for c in cpu["completions"]} or \
+            (card["tokens"], card["searches"]) != (cpu["tokens"],
+                                                   cpu["searches"]):
+        raise AssertionError(f"serve_lm: card {card}, cpu {cpu}")
+    if grew["flash_attention"] == 0:
+        raise AssertionError(f"serve_lm launched {grew}")
+    log(f"serve_lm on the card: {len(card['completions'])} completions, "
+        f"{card['tokens']} tokens, {card['searches']} searches, equal to "
+        f"the CPU run; launches {grew}")
+    return grew
+
+
+def roofline_phase(dev) -> dict:
+    t0 = time.perf_counter()
+    total = dict.fromkeys(native.LAUNCHES, 0)
+    for arch, shape in CHECK_CELLS:
+        add_launches(total, check_cell(arch, shape, dev))
+    dispatch_cost(dev)
+    production_cells()
+    for grew in (range_example_path(), serve_example_path()):
+        add_launches(total, grew)
+    start_run()
+    log(f"phase 9 (dry run against the card, examples) took "
+        f"{time.perf_counter() - t0:.3f} s; launches {total}")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--key-pages", type=int, default=16_384)
@@ -3885,7 +4093,7 @@ def main(argv=None) -> int:
     # 2. Kernel checks (these launches are not the main paths').
     rows = kernel_checks(dev)
 
-    # 3.-8. The main paths.
+    # 3.-9. The main paths.
     launches, reports = main_path(args.key_pages, args.n_ops)
     for grew in (sharded_path(args.key_pages, args.n_ops, reports),
                  reliability_phase(args.key_pages, args.n_ops),
@@ -3893,14 +4101,15 @@ def main(argv=None) -> int:
                  auditor_phase(args.key_pages, args.n_ops),
                  index_phase(args.key_pages), quickstart_path(),
                  serve_path(dev), reduced_serve_path(dev),
-                 training_phase(dev, smi), families_phase(dev)):
+                 training_phase(dev, smi), families_phase(dev),
+                 roofline_phase(dev)):
         for k in launches:
             launches[k] += grew[k]
     for k in KERNELS:
         if launches[k] == 0:
             raise AssertionError(f"{k} never launched on the main paths")
 
-    # 9. Kernels line.
+    # 10. Kernels line.
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],
          "replaces": KERNELS[k][1], "launches": launches[k],
@@ -3908,7 +4117,7 @@ def main(argv=None) -> int:
          "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
          "bound_by": r["bound"][1], "library_ms": r.get("library_ms")}
         for k, r in rows.items()]}), flush=True)
-    # 10. The card, then the result.
+    # 11. The card, then the result.
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -4,7 +4,10 @@ the checks and the dispatch.  The kernel reads q, k and v in their
 
 A CUDA tensor launches the kernel at any Sq and Sk, the decode shape
 Sq = 1 included; a CPU tensor takes the plain PyTorch version in ref.py.
-There is no fallback between the two.
+There is no fallback between the two.  A meta tensor takes the kernel's
+route, checks included, and launches nothing: the op's fake
+implementation gives the output's shape.  That is how the dry run
+(``launch/dryrun.py``) traces the card's program without a card.
 
 The kernel is forward only, as the JAX package's is.  When autograd
 records (grad enabled and an input that requires grad) the launch goes
@@ -14,12 +17,21 @@ vector-Jacobian product: the gradient the JAX package trains with, the VJP
 of its ``_attend``.  So a CUDA output that needs a gradient always has a
 ``grad_fn``.  Under ``no_grad`` (serving) the launch is the same and no
 Function is recorded.
+
+The launch itself is the op ``repro_torch::flash_attention_fwd`` (a
+``torch.library.custom_op``), so PyTorch's own tracing sees the kernel:
+on meta tensors and under ``FakeTensorMode`` its fake implementation gives
+the output's shape and launches nothing, and ``FlopCounterMode`` (and
+``launch/trace_analysis.py``) count its useful FLOPs by the formula
+registered here, the one ``launch/roofline.py`` bounds the kernel with.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import native
+from repro_torch.launch.roofline import attention_flops
 from .ref import attention_ref
 
 HEAD_DIMS = tuple(range(16, 129, 16))   # every multiple of 16 to 128
@@ -46,7 +58,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              scale=scale, q_offset=q_offset)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention: no implementation on {q.device}")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: the "
@@ -62,25 +74,46 @@ def flash_attention(q, k, v, *, causal: bool = True,
     # The kernel reads (B, S, H, D) in place: no copy unless a caller hands
     # it a strided view.
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("q, k and v must be 16-byte aligned")
-    mask = (causal, window, scale, q_offset)
+    mask = (bool(causal), None if window is None else int(window),
+            float(scale), int(q_offset))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, *mask)
     return _launch(q, k, v, *mask)
 
 
-def _launch(q, k, v, causal, window, scale, q_offset):
-    """One launch of the kernel on checked, contiguous q, k, v."""
+def launch_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, window: int | None, scale: float,
+                  q_offset: int) -> torch.Tensor:
+    """One launch of the kernel on checked, contiguous CUDA q, k, v: the
+    body of the op ``_launch``."""
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must be 16-byte aligned")
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     if q.numel():
         native.launch("flash_attention_launch", q, k, v, out, b, sq, sk, d, h,
-                      hkv, float(scale), int(causal), window or 0, q_offset,
+                      hkv, scale, int(causal), window or 0, q_offset,
                       DTYPES[q.dtype], device=q.device)
         native.LAUNCHES["flash_attention"] += 1
     return out
+
+
+_launch = torch.library.custom_op("repro_torch::flash_attention_fwd",
+                                  launch_kernel, mutates_args=())
+
+
+@_launch.register_fake
+def _(q, k, v, causal, window, scale, q_offset):
+    return q.new_empty(q.shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _launch_flops(q_shape, k_shape, v_shape, causal, window, scale, q_offset,
+                  *args, **kwargs) -> int:
+    b, sq, h, d = q_shape
+    return attention_flops(b, sq, k_shape[1], h, d, causal=causal,
+                           window=window, q_offset=q_offset)
 
 
 class _FlashAttention(torch.autograd.Function):

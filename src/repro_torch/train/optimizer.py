@@ -19,7 +19,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.convert import tree_items, tree_map
 
@@ -58,11 +58,19 @@ def _local(t: torch.Tensor) -> torch.Tensor:
 
 def global_norm(tree: dict) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32, leaves in the
-    JAX tree order; a sharded leaf's sum is reduced over the mesh."""
+    JAX tree order; a sharded leaf's sum is taken over its local shard and
+    summed over the mesh dimensions that shard it (what a DTensor ``sum``
+    computes, with no DTensor op: the step's ops all run on local
+    shards)."""
     total = 0
     for _, x in tree_items(tree):
-        sq = torch.sum(torch.square(x.float()))
-        total = total + (sq.full_tensor() if isinstance(sq, DTensor) else sq)
+        sq = torch.sum(torch.square(_local(x).float()))
+        if isinstance(x, DTensor):
+            sq = DTensor.from_local(
+                sq, x.device_mesh,
+                [Partial() if isinstance(p, Shard) else Replicate()
+                 for p in x.placements], run_check=False).full_tensor()
+        total = total + sq
     return torch.sqrt(total)
 
 

@@ -112,6 +112,16 @@ def _sum_over_data(t, mesh) -> None:
             dist.all_reduce(t, group=mesh.get_group(axis))
 
 
+def gather_weights(model, compute) -> None:
+    """Copy the full value of every DTensor parameter of ``model`` into the
+    same parameter of ``compute``, a plain model of the same config: one
+    gather over the mesh a parameter."""
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        for name, q in compute.named_parameters():
+            q.copy_(params[name].full_tensor())
+
+
 def _data_parallel_grads(model, compute, batch, mesh, microbatches):
     """The gradient of the global batch's loss with respect to the DTensor
     parameters of ``model``: full weights gathered into ``compute`` (a
@@ -119,9 +129,7 @@ def _data_parallel_grads(model, compute, batch, mesh, microbatches):
     gradients summed over the data axes with weights of labelled-token
     shares; each returned as a DTensor with its parameter's placements."""
     params = dict(model.named_parameters())
-    with torch.no_grad():
-        for name, q in compute.named_parameters():
-            q.copy_(params[name].full_tensor())
+    gather_weights(model, compute)
     tokens, labels, fe = (
         batch[k].to_local() if isinstance(batch.get(k), DTensor)
         else batch.get(k) for k in ("tokens", "labels", "frontend"))

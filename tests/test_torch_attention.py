@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro.configs import ARCHS, reduced_config
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
@@ -131,13 +132,23 @@ def test_rows_that_see_no_key_are_zero():
 
 
 def test_cpu_never_launches_and_other_devices_refuse():
+    """The CPU runs the plain version; a meta tensor takes the kernel's
+    route, its checks included, and launches nothing (the dry run's
+    trace); any other device refuses."""
     native.reset_launches()
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 4, 4, 2, 1, 32, 4))
     flash_attention(q, k, v)
-    assert native.LAUNCHES["flash_attention"] == 0
     meta = torch.empty((1, 4, 2, 32), device="meta")
+    out = flash_attention(meta, meta[:, :, :1], meta[:, :, :1])
+    assert out.device.type == "meta" and out.shape == meta.shape
+    assert native.LAUNCHES["flash_attention"] == 0
+    half = meta.half()
     with pytest.raises(ValueError):
-        flash_attention(meta, meta[:, :, :1], meta[:, :, :1])
+        flash_attention(half, half[:, :, :1], half[:, :, :1])
+    with FakeTensorMode():
+        other = [torch.empty((1, 4, n, 32), device="xpu") for n in (2, 1, 1)]
+        with pytest.raises(ValueError):
+            flash_attention(*other)
     with pytest.raises(ValueError):
         flash_attention(q, k, v, window=0)
 

@@ -1428,3 +1428,85 @@ def test_family_train_step_on_card(arch):
     state = init_opt_state(param_tree(model), opt_cfg)
     model, _, m = make_train_step(cfg, opt_cfg)(model, state, batch)
     assert np.isfinite(float(m["loss"]))
+
+
+# ------------------------------------------ slice 11: the traceable kernel
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,shape,kw", [
+    (torch.bfloat16, (1, 1, 128, 32, 8, 128), dict(causal=True, q_offset=16)),
+    (torch.bfloat16, (2, 64, 64, 4, 2, 64), dict(causal=True, window=16)),
+    (torch.float32, (1, 40, 40, 4, 4, 32), dict(causal=False)),
+])
+def test_attention_op_is_its_launch_and_keeps_the_gradient(dtype, shape, kw):
+    """The op ``repro_torch::flash_attention_fwd`` gives its body's launch
+    bit for bit and counts one launch; through autograd the gradient is
+    still the plain ``attend``'s VJP, bit for bit."""
+    dev = _cuda_or_skip()
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    b, sq, sk, h, hkv, d = shape
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, s, n, d)).astype(
+        np.float32)).to(dev, dtype) for s, n in ((sq, h), (sk, hkv),
+                                                 (sk, hkv)))
+    args = (q, k, v, kw["causal"], kw.get("window"), d ** -0.5,
+            kw.get("q_offset", sk - sq))
+    before = native.LAUNCHES["flash_attention"]
+    got = torch.ops.repro_torch.flash_attention_fwd(*args)
+    want = flash_ops.launch_kernel(*args)
+    assert native.LAUNCHES["flash_attention"] == before + 2
+    assert torch.equal(got, want)
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    g = torch.ones(got.shape, device=dev, dtype=dtype)
+    grads = torch.autograd.grad(flash_attention(*qkv, **kw), qkv, g)
+    pq = [t.clone().requires_grad_() for t in (q, k, v)]
+    plain = torch.autograd.grad(plain_attention(*pq, **kw), pq, g)
+    for a, p in zip(grads, plain):
+        assert torch.equal(a, p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["train", "decode", "prefill"])
+def test_meta_trace_equals_the_card_run_of_a_reduced_step(mode):
+    """A reduced olmo-1b step traced on meta tensors and run on the card
+    under the same counter: every count equal, the attention launched
+    as counted, and the traced peak equal to the run's live storages."""
+    dev = _cuda_or_skip()
+    from repro_torch.launch.dryrun import build_step
+    from repro_torch.launch.trace_analysis import count
+    from repro_torch.models.config import InputShape
+    cfg = reduced_config(get_config("olmo-1b"))
+    shape = InputShape("t", mode, 32, 4)
+    cell = build_step(cfg, shape)
+    _, traced = count(cell.step, *cell.inputs, device_type="meta")
+    cell = build_step(cfg, shape, device=dev)
+    cell.inputs[0].reset_parameters(
+        torch.Generator(device=dev).manual_seed(0))
+    native.reset_launches()
+    _, ran = count(cell.step, *cell.inputs, device_type="cuda")
+    torch.cuda.synchronize()
+    assert ran.key() == traced.key()
+    assert ran.peak_bytes == traced.peak_bytes
+    assert native.LAUNCHES["flash_attention"] == cfg.n_layers * (
+        2 if mode == "train" else 1)
+
+
+@pytest.mark.gpu
+def test_examples_on_card_equal_their_cpu_runs():
+    """``range_query_analytics.main()`` equals its CPU run number for number
+    with one ``sim_plan`` and one ``sim_gather`` launch a select;
+    ``serve_lm.main()`` completes every request with the CPU run's counts."""
+    _cuda_or_skip()
+    from repro_torch import range_query_analytics, serve_lm
+    native.reset_launches()
+    card = range_query_analytics.main()
+    assert (native.LAUNCHES["sim_plan"], native.LAUNCHES["sim_gather"]) == \
+        (3, 3) and sum(native.LAUNCHES.values()) == 6
+    assert card == range_query_analytics.main(device="cpu")
+    card = serve_lm.main([])
+    cpu = serve_lm.main(["--device", "cpu"])
+    assert {c.req_id: len(c.tokens) for c in card["completions"]} == \
+        {c.req_id: len(c.tokens) for c in cpu["completions"]}
+    assert (card["tokens"], card["searches"]) == (cpu["tokens"],
+                                                  cpu["searches"])
+    assert len(card["completions"]) == 12
