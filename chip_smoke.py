@@ -166,11 +166,25 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    ``sim_gather`` launch a select, and ``repro_torch.serve_lm.main()``
    completing every request with the CPU run's completions, tokens and
    searches.
-10. One JSON line of the kernels, their launches and times.
-11. The card's ``nvidia-smi`` name and power limit, then the last line:
+10. The tensor-parallel training step (``train/train_step.py`` on a
+   mesh).  (a) A world of one over NCCL (``tcp://localhost``, a free
+   port) on a (1, 1) ``("data", "model")`` mesh: olmo-1b at full width
+   with 2 layers in float32, 2 steps of the sharded step, its collectives
+   run over groups of one, against the plain step from the same seed:
+   losses within 1e-5 and parameters within 1e-4, the flash attention
+   kernel twice a layer a step.  (b) Rank 0 of the single-pod 16 x 16 mesh
+   over the ``fake`` process group: olmo-1b's ``train_4k`` step at full
+   width and depth on the rank's own shards (16 x 4,096 tokens, 1 q head,
+   512 MLP columns, 3,152 vocabulary rows), traced on meta tensors by
+   ``lower_cell`` and run on the card under the same counter (counts
+   equal op for op, peaks as phase 9 holds them), then timed against the
+   roofline's compute and memory terms (the fake collectives move nothing,
+   and leave gathered buffers unfilled, so the values are meaningless).
+11. One JSON line of the kernels, their launches and times.
+12. The card's ``nvidia-smi`` name and power limit, then the last line:
     ``{"ok": true, "device": {...}}``.
 
-The launch counts are set to 0 just before each path of phases 3–9 and read
+The launch counts are set to 0 just before each path of phases 3–10 and read
 just after it; they show which kernels ran on that path. The replay scale
 is 20% of the paper's 650 MiB index: 16,384 key pages and 16,384 value
 pages of 4 KiB on 16 chips, for every replay path, the sharded and reliable
@@ -262,12 +276,13 @@ from repro_torch.launch.roofline import (F32_FLOPS, HBM_BW,  # noqa: E402
                                          INT32_OPS, PEAK_FLOPS,
                                          attention_flops, attention_pairs)
 from repro_torch.launch.serve import requests, serve  # noqa: E402
-from repro_torch.launch.dryrun import (build_step, lower_cell,  # noqa: E402
-                                       run_cell)
+from repro_torch.launch.dryrun import (WORLD as DRYRUN_WORLD,  # noqa: E402
+                                       build_step, fake_world, lower_cell,
+                                       production_mesh, run_cell)
 from repro_torch.launch.roofline import analyze, model_flops  # noqa: E402
 from repro_torch.launch.trace_analysis import count  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
-from repro_torch.models.config import InputShape  # noqa: E402
+from repro_torch.models.config import SHAPES, InputShape  # noqa: E402
 from repro_torch.convert import nest, param_tree  # noqa: E402
 from repro_torch.models import moe as moe_module  # noqa: E402
 from repro_torch.models.layers import (block_norm,  # noqa: E402
@@ -935,7 +950,9 @@ def plan_chips_checks(dev, floor_ms) -> dict:
 # families' forms: hymba's 25 q heads over 5 kv heads (group 5, head dim
 # 64) in windowed and global prefill and in ring decode, whisper's
 # non-causal encoder and cross-attention over 1,500 frames, mixtral's
-# decode and internvl2's prefill.
+# decode and internvl2's prefill; phase 10's tensor-parallel shapes: rank 0
+# of the 16 x 16 mesh in olmo-1b's train_4k (its 1 local q head over 1 kv
+# head) and the float32 world of one.
 ATTN_CASES = [
     ("qwen3-4b prefill", torch.bfloat16, (1, 16, 16, 32, 8, 128),
      dict(causal=True)),
@@ -973,7 +990,11 @@ ATTN_CASES = [
     ("mixtral-8x22b decode, q_offset 20", torch.bfloat16,
      (1, 1, 128, 48, 8, 128), dict(causal=True, q_offset=20)),
     ("internvl2-26b prefill", torch.bfloat16, (1, 320, 320, 48, 8, 128),
-     dict(causal=True))]
+     dict(causal=True)),
+    ("olmo-1b train_4k, rank 0 of 16 x 16: 1 q head over 1 kv head",
+     torch.bfloat16, (16, 4096, 4096, 1, 1, 128), dict(causal=True)),
+    ("olmo-1b tensor-parallel world of one, float32", torch.float32,
+     (4, 256, 256, 16, 16, 128), dict(causal=True))]
 # Timed for the kernels line: a decode step of the serve path, whose
 # positions run from 4 to 27 in a 128-slot cache.
 ATTN_TIMED = ("qwen3-4b decode, q_offset 16", torch.bfloat16,
@@ -4065,6 +4086,180 @@ def roofline_phase(dev) -> dict:
     return total
 
 
+# ------------------------- phase 10: the tensor-parallel training step
+# (a) A world of one over NCCL: olmo-1b at full width with TP_LAYERS layers
+# in float32, the sharded step beside the plain one, TP_STEPS steps.
+TP_LAYERS, TP_BATCH, TP_SEQ, TP_STEPS = 2, 4, 256, 2
+TP_LOSS_TOL, TP_PARAM_TOL = 1e-5, 1e-4     # tests/test_distribution.py's
+# (b) Rank 0 of the single-pod mesh over the fake group, on the card.
+TP_CELL = ("olmo-1b", "train_4k")
+TP_CELL_STEPS = 3                          # timed after the counted one
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def nccl_world_of_one_path(dev) -> dict:
+    """The sharded step on a (1, 1) ``("data", "model")`` mesh over NCCL,
+    whose collectives run over groups of one, against the plain step from
+    the same seed: the loss within TP_LOSS_TOL and every parameter within
+    TP_PARAM_TOL after TP_STEPS steps.  The launch counts are the sharded
+    run's."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.sharding import (batch_sharding, distribute,
+                                               shard_model)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TP_LAYERS,
+                              dtype="float32")
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TP_SEQ,
+                      global_batch=TP_BATCH, seed=0)
+    step = make_train_step(cfg, opt_cfg)
+    start_run()
+    plain = init_model(cfg, seed=0, device=dev)
+    state = init_opt_state(param_tree(plain), opt_cfg)
+    losses = []
+    for i in range(TP_STEPS):
+        plain, state, m = step(plain, state, batch_at_step(data, i,
+                                                           device=dev))
+        losses.append(float(m["loss"]))
+    want = {n: p.detach().clone() for n, p in plain.named_parameters()}
+    del plain, state
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        model = init_model(cfg, seed=0, device=dev)
+        shard_model(model, mesh, fsdp=cfg.fsdp)
+        ostate = init_opt_state(param_tree(model), opt_cfg)
+        tp_losses = []
+        start_run()
+        for i in range(TP_STEPS):
+            batch = {k: distribute(v, mesh, batch_sharding(mesh))
+                     for k, v in batch_at_step(data, i, device=dev).items()}
+            model, ostate, m = step(model, ostate, batch)
+            tp_losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        grew = dict(native.LAUNCHES)
+        err = max(float((p.full_tensor() - want[n]).abs().max())
+                  for n, p in model.named_parameters())
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    d_loss = max(abs(a - b) for a, b in zip(tp_losses, losses))
+    if d_loss >= TP_LOSS_TOL or err >= TP_PARAM_TOL:
+        raise AssertionError(f"world of one: losses {tp_losses} vs plain "
+                             f"{losses}, parameters {err} apart")
+    n_launch = TP_STEPS * launches_per_step(cfg)
+    if grew["flash_attention"] != n_launch or sum(grew.values()) != n_launch:
+        raise AssertionError(f"world of one: launches {grew}")
+    log(f"tensor-parallel step, a world of one over {backend} ({TRAIN_ARCH} "
+        f"full width, {TP_LAYERS} layers, float32, batch {TP_BATCH} x "
+        f"{TP_SEQ}, {TP_STEPS} steps): losses {tp_losses}, the plain step's "
+        f"{losses} (largest difference {d_loss}); parameters at most {err} "
+        f"apart (bounds {TP_LOSS_TOL}, {TP_PARAM_TOL}); launches {grew}")
+    return grew
+
+
+def fake_rank_path(dev, smi) -> dict:
+    """Rank 0 of the single-pod (16 x 16) mesh over the ``fake`` process
+    group runs TP_CELL's training step at full width and depth on its own
+    shards: traced on meta tensors by ``lower_cell``, then built on the card
+    and run once under the same counter (dot FLOPs, bytes, op count and
+    collective bytes equal, the counter's peaks equal, the allocator's
+    within PEAK_TOL), then timed.  The fake collectives move nothing and
+    leave gathered buffers unfilled: the values are meaningless, and the
+    step time holds no communication, so it is held to the roofline's
+    compute and memory terms, not to its collective one."""
+    arch, shape_name = TP_CELL
+    cfg = get_config(arch)
+    shape = SHAPES[shape_name]
+    t0 = start_run()
+    with fake_world(DRYRUN_WORLD["single"]):
+        mesh = production_mesh(multi_pod=False)
+        traced, report = lower_cell(cfg, shape, mesh)
+        rl = analyze(traced, mesh.size())
+        cell = build_step(cfg, shape, mesh, device=dev)
+        model = cell.inputs[0]
+        local = {n: tuple(p.to_local().shape) for n, p in
+                 model.named_parameters()}
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        native.reset_launches()
+        before = torch.cuda.memory_allocated()
+        _, ran = count(cell.step, *cell.inputs, device_type="cuda")
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        counted = dict(native.LAUNCHES)
+        times = []
+        for _ in range(TP_CELL_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            cell.run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        del cell, model
+    if ran.key() != traced.key():
+        raise AssertionError(f"{arch} {shape_name} rank 0: the trace counts "
+                             f"{traced} but the card's run {ran}")
+    if ran.peak_bytes != traced.peak_bytes:
+        raise AssertionError(f"{arch} {shape_name} rank 0: traced peak "
+                             f"{traced.peak_bytes}, the run's storages "
+                             f"{ran.peak_bytes}")
+    beside = before - ran.start_bytes
+    card_peak = peak - beside
+    if abs(card_peak - traced.peak_bytes) > PEAK_TOL * traced.peak_bytes:
+        raise AssertionError(f"{arch} {shape_name} rank 0: traced peak "
+                             f"{traced.peak_bytes}, the allocator's "
+                             f"{card_peak}")
+    want = launches_per_step(cfg)
+    if counted["flash_attention"] != want or sum(counted.values()) != want:
+        raise AssertionError(f"{arch} {shape_name} rank 0: launches "
+                             f"{counted}, expected {want}")
+    step_s = sorted(times)[len(times) // 2]
+    device_bound = max(rl.compute_s, rl.memory_s)
+    if step_s < device_bound:
+        raise AssertionError(f"{arch} {shape_name} rank 0: a step of "
+                             f"{step_s} s beats its device bound "
+                             f"{device_bound} s")
+    grew = dict(native.LAUNCHES)
+    h = local["blocks.attn.wq"]
+    log(f"tensor-parallel step, rank 0 of {report['mesh']} over the fake "
+        f"group ({arch} {shape_name} full width and depth, "
+        f"{report['n_devices']} ranks): local wq {h} ({h[2]} q head), "
+        f"mlp.wi_gate {local['blocks.mlp.wi_gate']}, embed "
+        f"{local['embed']}; trace = card run: {traced.n_ops} ops, dot FLOPs "
+        f"{traced.dot_flops}, bytes accessed {traced.bytes_accessed}, "
+        f"collective bytes {traced.collective_bytes}; peak traced "
+        f"{traced.peak_bytes} B, allocator {card_peak} B "
+        f"({card_peak / traced.peak_bytes - 1:+.4f}; {peak} less {beside} "
+        f"beside); terms compute {rl.compute_s * 1e3:.6f} ms, memory "
+        f"{rl.memory_s * 1e3:.6f} ms, collective "
+        f"{rl.collective_s * 1e3:.6f} ms, bound {rl.bound_s * 1e3:.6f} ms "
+        f"({rl.dominant}); step ms {[round(1e3 * t, 3) for t in times]}, "
+        f"median {step_s * 1e3:.3f} ms = {step_s / device_bound:.3f} x the "
+        f"device bound (no communication on the card); flash_attention "
+        f"launches {counted['flash_attention']} a step at H_local {h[2]}; "
+        f"{time.perf_counter() - t0:.1f} s with the trace; card {smi}")
+    return grew
+
+
+def tp_training_phase(dev, smi) -> dict:
+    t0 = time.perf_counter()
+    total = dict.fromkeys(native.LAUNCHES, 0)
+    for grew in (nccl_world_of_one_path(dev), fake_rank_path(dev, smi)):
+        add_launches(total, grew)
+    start_run()
+    log(f"phase 10 (tensor-parallel training) took "
+        f"{time.perf_counter() - t0:.3f} s; launches {total}")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--key-pages", type=int, default=16_384)
@@ -4093,7 +4288,7 @@ def main(argv=None) -> int:
     # 2. Kernel checks (these launches are not the main paths').
     rows = kernel_checks(dev)
 
-    # 3.-9. The main paths.
+    # 3.-10. The main paths.
     launches, reports = main_path(args.key_pages, args.n_ops)
     for grew in (sharded_path(args.key_pages, args.n_ops, reports),
                  reliability_phase(args.key_pages, args.n_ops),
@@ -4102,14 +4297,14 @@ def main(argv=None) -> int:
                  index_phase(args.key_pages), quickstart_path(),
                  serve_path(dev), reduced_serve_path(dev),
                  training_phase(dev, smi), families_phase(dev),
-                 roofline_phase(dev)):
+                 roofline_phase(dev), tp_training_phase(dev, smi)):
         for k in launches:
             launches[k] += grew[k]
     for k in KERNELS:
         if launches[k] == 0:
             raise AssertionError(f"{k} never launched on the main paths")
 
-    # 10. Kernels line.
+    # 11. Kernels line.
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],
          "replaces": KERNELS[k][1], "launches": launches[k],
@@ -4117,7 +4312,7 @@ def main(argv=None) -> int:
          "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
          "bound_by": r["bound"][1], "library_ms": r.get("library_ms")}
         for k, r in rows.items()]}), flush=True)
-    # 11. The card, then the result.
+    # 12. The card, then the result.
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

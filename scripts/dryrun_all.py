@@ -1,7 +1,7 @@
 """The dry run of every (arch x shape x mesh) cell, in parallel processes,
 and its table.
 
-    PYTHONPATH=src python3 scripts/dryrun_all.py [--jobs 8] [--limit 1800]
+    PYTHONPATH=src python3 scripts/dryrun_all.py [--jobs 8] [--limit 1800] [--shape train_4k]
 
 Each cell is one ``python -m repro_torch.launch.dryrun --arch A --shape S
 --mesh M`` process, at most ``--jobs`` at once, the longest traces first
@@ -10,7 +10,8 @@ not finished in ``--limit`` seconds is killed and listed as not traced.
 Reports land in ``experiments/dryrun_torch/``; the table (markdown, one
 line an arch x shape, the single-pod mesh's value before the multi-pod
 one's) goes to standard output; ``--table-only`` prints it from the
-reports already there.  The numbers are computed from the traced program with
+reports already there; ``--shape`` (repeatable) keeps those shapes' cells
+and rows only.  The numbers are computed from the traced program with
 the H100's peaks (``repro_torch.launch.roofline``), not measured.  Needs
 no card; a full-size training trace holds its whole autograd graph in
 host memory, so run it where the host has room.
@@ -74,13 +75,13 @@ def row(arch: str, shape: str, reps: list) -> str:
     ]) + " |"
 
 
-def table() -> list:
+def table(shapes=tuple(SHAPES)) -> list:
     lines = ["| arch | shape | FLOPs/dev | bytes/dev | collective B/dev | "
              "dominant | bound s | traced peak GB (fits 80 GB?) | roofline "
              "fraction |", "| --- " * 9 + "|"]
     skipped = []
     for arch in sorted(ARCHS):
-        for shape in SHAPES:
+        for shape in shapes:
             paths = [OUT_DIR / f"{arch}__{shape}__{m}.json"
                      for m in ("single", "multi")]
             reps = [json.loads(p.read_text()) if p.exists() else None
@@ -89,7 +90,9 @@ def table() -> list:
                 skipped.append(arch)
                 continue
             lines.append(row(arch, shape, reps))
-    lines.append(f"\nlong_500k skipped (full attention): {', '.join(skipped)}")
+    if skipped:
+        lines.append(f"\nlong_500k skipped (full attention): "
+                     f"{', '.join(skipped)}")
     return lines
 
 
@@ -99,16 +102,19 @@ def main() -> int:
     ap.add_argument("--limit", type=float, default=1800.0)
     ap.add_argument("--table-only", action="store_true",
                     help="print the table of the reports already written")
+    ap.add_argument("--shape", action="append", choices=list(SHAPES),
+                    help="only this shape's cells (repeatable)")
     args = ap.parse_args()
+    shapes = tuple(args.shape or SHAPES)
     if not args.table_only:
         OUT_DIR.mkdir(parents=True, exist_ok=True)
         cells = [(a, s, m) for m in ("single", "multi") for a in sorted(ARCHS)
-                 for s in SHAPES]
+                 for s in shapes]
         cells.sort(key=lambda c: (c[0] not in SLOW,
                                   c[1] not in ("prefill_32k", "train_4k")))
         with ThreadPoolExecutor(args.jobs) as pool:
             list(pool.map(lambda c: run(c, args.limit), cells))
-    lines = table()
+    lines = table(shapes)
     print("\n".join(lines))
     return sum("not traced" in ln or "no report" in ln or "error" in ln
                for ln in lines)

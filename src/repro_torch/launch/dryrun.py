@@ -20,16 +20,21 @@ the same step run on the card.
 A mesh is a ``DeviceMesh`` over the ``fake`` process group at the
 production world size (256 single, 512 multi pod); its collectives return
 at once and are counted.  Rank 0's trace is the per-device count, as the
-JAX package's partitioned module is.  The port's sharded program is its
-training step's (``train/train_step.py``): parameters and moments are
-DTensors placed by the JAX rules, each rank gathers the full weights into
-a plain model, runs its shard of the batch (the model axis repeats the
-same work: no tensor-parallel compute is ported) and all-reduces the
-gradients over the data axes.  Prefill and decode cells run the same way:
-the weights gathered, the rank's batch shard of tokens and caches, the
-caches whole along every other dimension.  A decode step writes and reads
+JAX package's partitioned module is.  A ``train`` cell traces the port's
+sharded training step (``train/train_step.py``), the JAX package's GSPMD
+program: parameters and moments are DTensors placed by the JAX rules, each
+layer's weights are all-gathered over the data axes just before use and
+keep their split over ``model``, so rank 0 computes its own heads, MLP
+columns, experts and vocabulary rows of its batch shard, with the
+model-axis all-reduces and the FSDP reduce-scatters of the gradients
+(hymba's mamba heads and the xLSTM blocks are gathered whole and run
+replicated).  Prefill and decode cells keep the gathered-weight program
+until the serve path is sharded: every rank gathers the full weights into
+a plain model (:func:`gather_weights`) and runs its batch shard of tokens
+and caches, the caches whole along every other dimension, so the model
+axis repeats the same work there.  A decode step writes and reads
 position ``seq_len - 1``, a full cache.  So the per-device terms and peaks
-differ from the JAX package's; they are the port's.
+of those cells differ from the JAX package's; they are the port's.
 
 Each cell's report lands in ``experiments/dryrun_torch/<arch>__<shape>__
 <mesh>[__variant].json``.
@@ -56,6 +61,7 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.configs import ARCHS, SHAPES, get_config, shape_cells
 from repro_torch.convert import param_tree
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.launch import specs as S
 from repro_torch.launch.mesh import production_mesh_spec
 from repro_torch.launch.roofline import HBM_BYTES, analyze, model_flops
@@ -65,7 +71,7 @@ from repro_torch.models.model import LM, make_caches, prefill
 from repro_torch.parallel.sharding import shard_model
 from repro_torch.serve.serve_step import serve_decode_step
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state
-from repro_torch.train.train_step import gather_weights, make_train_step
+from repro_torch.train.train_step import make_train_step
 
 OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 WORLD = {"single": 256, "multi": 512}
@@ -96,6 +102,16 @@ def production_mesh(multi_pod: bool) -> DeviceMesh:
                       mesh_dim_names=axes)
 
 
+def gather_weights(model, compute) -> None:
+    """Copy the full value of every DTensor parameter of ``model`` into the
+    same parameter of ``compute``, a plain model of the same config: one
+    gather over the mesh a parameter (the serve cells' program)."""
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        for name, q in compute.named_parameters():
+            q.copy_(params[name].full_tensor())
+
+
 @dataclasses.dataclass
 class CellStep:
     """One cell's step: ``step(*inputs)`` takes it once; ``inputs`` (the
@@ -122,13 +138,14 @@ def _local_rows(cfg: ModelConfig, shape: InputShape, mesh) -> int:
 
 
 def build_step(cfg: ModelConfig, shape: InputShape, mesh=None, *,
-               device=META,
-               opt_cfg: AdamWConfig | None = None) -> CellStep:
+               device=META, opt_cfg: AdamWConfig | None = None,
+               attention=flash_attention) -> CellStep:
     """The cell's model, inputs and step on ``device`` (meta for a trace);
     with a mesh, the parameters (and moments) are
     DTensors placed by the JAX rules and the batch and caches the rank's
     shard.  The model's weights are left as allocated: a run on real
-    tensors draws them first (``LM.reset_parameters``)."""
+    tensors draws them first (``LM.reset_parameters``).  ``attention``: the
+    train step's attention core (the kernel's wrapper)."""
     opt_cfg = opt_cfg or AdamWConfig(moment_dtype=cfg.optimizer_dtype)
     model = LM(cfg, device)
     replicated: list = []
@@ -159,7 +176,7 @@ def build_step(cfg: ModelConfig, shape: InputShape, mesh=None, *,
             bsh = S.batch_shardings(cfg, shape, mesh)["tokens"]
             batch = {k: DTensor.from_local(v, mesh, bsh, run_check=False)
                      for k, v in batch.items()}
-        return CellStep(make_train_step(cfg, opt_cfg),
+        return CellStep(make_train_step(cfg, opt_cfg, attention=attention),
                         (model, opt_state, batch), replicated)
 
     def compute(model):

@@ -31,8 +31,12 @@ Per traced region (one rank's step), in :class:`TraceCounts`:
                            tensor dies (a weakref finalizer on the storage).
 
 An op moves no bytes when every result aliases an operand and nothing is
-written (views, ``_unsafe_view``, ``wait_tensor``, ``detach``), or when it
-only allocates (the ``empty`` family).  Only device ops count: an op none of whose
+written (views, ``_unsafe_view``, ``detach``), or when it only allocates
+(the ``empty`` family).  A collective's ``wait_tensor`` is not counted at
+all: it marks where a result is ready and moves nothing, yet its fake
+kernel returns a fresh tensor on meta where a real run returns its
+operand, and a DTensor's lazily waited collectives dispatch it only on a
+real run; the counter carries the operand's storage over to its result.  Only device ops count: an op none of whose
 tensors lies on the counter's device is host work (a CPU random-number
 state cloned by ``torch.utils.checkpoint`` on the card, a CPU constant);
 ``lift_fresh`` only marks a Python constant as a tensor, and ops of the
@@ -137,6 +141,7 @@ class _Op:
     inputs: tuple           # positions of a collective's data operands
     writes: tuple           # positions of the arguments it writes
     allocates: bool         # only allocates (the ``empty`` family)
+    waits: bool             # a collective's ``wait_tensor``
 
     @classmethod
     def of(cls, func) -> "_Op":
@@ -153,7 +158,8 @@ class _Op:
             writes=tuple(i for i, a in enumerate(args)
                          if a.alias_info is not None
                          and a.alias_info.is_write),
-            allocates=name in _ALLOCATE_ONLY)
+            allocates=name in _ALLOCATE_ONLY,
+            waits=name == "wait_tensor")
 
 
 class TraceCounter(TorchDispatchMode):
@@ -197,6 +203,16 @@ class TraceCounter(TorchDispatchMode):
     def _release(self, key: int) -> None:
         self._live_bytes -= self._live.pop(key, 0)
 
+    def _carry(self, src: torch.Tensor, dst: torch.Tensor) -> None:
+        """Move the tracking of ``src``'s storage to ``dst``'s, which holds
+        the same value (a fake ``wait_tensor``'s fresh result)."""
+        old = src.untyped_storage()._cdata
+        st = dst.untyped_storage()
+        if old == st._cdata or old not in self._live:
+            return
+        self._live[st._cdata] = self._live.pop(old)
+        weakref.finalize(st, self._release, st._cdata)
+
     # ------------------------------------------------------------ counting
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -212,6 +228,10 @@ class TraceCounter(TorchDispatchMode):
             op = self._ops[func] = _Op.of(func)
         outs = _flat(out, [])
         dev = self.device_type
+        if op.waits:
+            for src, dst in zip(ins[:1], outs[:1]):
+                self._carry(src, dst)
+            return out
         if op.metadata or all(t.device.type != dev for t in ins + outs):
             return out
         c = self.counts

@@ -53,7 +53,13 @@ def train(arch: str | ModelConfig, *, steps: int = 50, reduced: bool = True,
     checkpoint there; ``crash_at`` raises at that step once.  ``mesh`` (a
     DeviceMesh with ``data``/``model`` axes, and ``pod``) shards the
     parameters, moments and batch over it; its device type is the
-    device, and every rank runs this function."""
+    device, and every rank runs this function.  The step then computes
+    tensor-parallel over ``model`` and gathers each layer's FSDP split
+    over the data axes just before use (``train/train_step.py``): the
+    cases where the JAX launcher builds ``block_specs`` (``cfg.fsdp``, more
+    than one device), and with no FSDP split the same program without
+    gathers.  hymba's mamba heads and the xLSTM blocks, which the JAX
+    launcher leaves to GSPMD, are gathered whole and run replicated."""
     cfg = arch if isinstance(arch, ModelConfig) else get_config(arch)
     if reduced and not isinstance(arch, ModelConfig):
         cfg = reduced_config(cfg)

@@ -15,6 +15,15 @@ attention core is ``kernels.flash_attention.ops.flash_attention``: on the
 card every attention runs the hand-written kernel, and under autograd its
 gradient is the vector-Jacobian product of :func:`attend`, the JAX
 package's ``_attend``, which is what the JAX package trains with.
+
+Under the sharded training step the layer functions take ``tp``, the
+mesh's model axis (``parallel/tensor_parallel.py``), and weights that hold
+this rank's slice of it: attention is column-parallel by heads in
+``wq``/``wk``/``wv`` and row-parallel in ``wo``, the MLP column-parallel
+in ``wi_gate``/``wi_up`` and row-parallel in ``wo``, each followed by one
+all-reduce over the axis.  A layer reads its local head and column counts
+from its weights' shapes.  With ``tp`` None (one device) the same code
+runs with no collective.
 """
 from __future__ import annotations
 
@@ -23,6 +32,8 @@ from torch import nn
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import NEG_INF
+from repro_torch.parallel.tensor_parallel import (Axis, copy_to,
+                                                  reduce_from, split_axis)
 from .config import ModelConfig
 
 
@@ -275,10 +286,35 @@ def plain_attention(q, k, v, *, causal: bool = True,
     return attend(q, k, v, bias, scale=scale)
 
 
+def _heads(p: dict, cfg: ModelConfig, tp: Axis | None):
+    """The attention's model axis, or None when its q heads are whole on
+    this rank (then the layer runs replicated), and ``(first q head, kv
+    weights)``: ``wk``/``wv`` sliced to the kv heads this rank's q heads
+    read when the kv heads are whole but the q heads split (a replicated
+    tensor read locally, so through :func:`copy_to`)."""
+    h = p["wq"].shape[-2]
+    tp = None if tp is None else split_axis(tp, h, cfg.padded_heads)
+    if tp is None:
+        return None, 0, p["wk"], p["wv"]
+    first = tp.offset(h)
+    wk, wv = p["wk"], p["wv"]
+    if split_axis(tp, wk.shape[-2], cfg.n_kv_heads) is None:
+        g_pad = cfg.padded_heads // cfg.n_kv_heads
+        if g_pad % h:
+            raise NotImplementedError(
+                f"{cfg.name}: {h} q heads a rank over kv groups of {g_pad}"
+                " do not share one kv head; the local attention needs a "
+                "whole kv group or whole kv heads")
+        lo = first // g_pad
+        wk, wv = (copy_to(w, tp)[:, lo:lo + 1] for w in (wk, wv))
+    return tp, first, wk, wv
+
+
 def apply_attention(p: dict, x, cfg: ModelConfig, *, positions,
                     causal: bool = True, window: int | None = None,
                     q_offset: int = 0, kv_cache=None,
-                    cache_index=None, attention=flash_attention):
+                    cache_index=None, attention=flash_attention,
+                    tp: Axis | None = None):
     """One self-attention layer; ``p`` holds the layer's weights.
 
     The caller picks the mask: query row i sits at absolute position
@@ -289,14 +325,17 @@ def apply_attention(p: dict, x, cfg: ModelConfig, *, positions,
     each (B, C, Hkv, hd), the new tokens' k/v are written in
     place at slot ``cache_index`` and x attends to the whole cache.
     ``attention`` is the attention core: the kernel's wrapper, or its plain
-    version to check it.
+    version to check it.  ``tp``: the model axis; ``p`` then holds this
+    rank's heads and the output is summed over the axis.
     """
+    tp, first, wk, wv = _heads(p, cfg, tp)
+    x = copy_to(x, tp)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    k = torch.einsum("bsd,dhk->bshk", x, wk)
+    v = torch.einsum("bsd,dhk->bshk", x, wv)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        q = rms_norm(q, copy_to(p["q_norm"], tp), cfg.norm_eps)
+        k = rms_norm(k, copy_to(p["k_norm"], tp), cfg.norm_eps)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
@@ -312,26 +351,34 @@ def apply_attention(p: dict, x, cfg: ModelConfig, *, positions,
     out = attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
     if cfg.padded_heads != cfg.n_heads:
         # zero the padded heads' outputs so they contribute nothing
-        out = out * head_pad_mask(cfg, out.device).to(out.dtype)[
-            None, None, :, None]
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+        mask = head_pad_mask(cfg, out.device)[first:first + q.shape[2]]
+        out = out * mask.to(out.dtype)[None, None, :, None]
+    return reduce_from(torch.einsum("bshk,hkd->bsd", out, p["wo"]), tp)
 
 
-def apply_cross_attention(p: dict, x, enc_out, *, attention=flash_attention):
+def apply_cross_attention(p: dict, x, enc_out, *, attention=flash_attention,
+                          cfg: ModelConfig | None = None,
+                          tp: Axis | None = None):
     """whisper's decoder cross-attention: q from x (B, S, d), k and v
     projected from the encoder output (B, F, d); no rope, no mask, no
-    head-pad mask (the JAX package's ``_dense_block`` cross branch)."""
+    head-pad mask (the JAX package's ``_dense_block`` cross branch).
+    ``tp`` (with ``cfg``): the model axis, as for :func:`apply_attention`."""
+    tp, _, wk, wv = _heads(p, cfg, tp)
+    x, enc_out = copy_to(x, tp), copy_to(enc_out, tp)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"])
+    k = torch.einsum("bsd,dhk->bshk", enc_out, wk)
+    v = torch.einsum("bsd,dhk->bshk", enc_out, wv)
     out = attention(q, k, v, causal=False)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return reduce_from(torch.einsum("bshk,hkd->bsd", out, p["wo"]), tp)
 
 
 # -------------------------------------------------------------------- mlp
 
-def apply_mlp(p: dict, x):
+def apply_mlp(p: dict, x, tp: Axis | None = None):
+    """SwiGLU; ``tp``: the model axis that ``p``'s hidden columns are split
+    over (the caller's to decide), the output summed over it."""
+    x = copy_to(x, tp)
     gate = torch.einsum("bsd,df->bsf", x, p["wi_gate"])
     up = torch.einsum("bsd,df->bsf", x, p["wi_up"])
     h = nn.functional.silu(gate.float()).to(x.dtype) * up
-    return torch.einsum("bsf,fd->bsd", h, p["wo"])
+    return reduce_from(torch.einsum("bsf,fd->bsd", h, p["wo"]), tp)

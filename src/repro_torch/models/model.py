@@ -20,6 +20,19 @@ sliding-window config attends within its window, except on its global
 layers (``lid % global_attn_every == 0``); a decode step against a ring
 cache sees every written slot, with no window, global layers included.
 
+Under the sharded training step ``train_logits`` takes ``tp``, one
+rank's plan of the mesh (``parallel/tensor_parallel.py``), and the model's
+parameters hold the rank's local shards.  Each layer's weights are
+all-gathered over the data axes just before use (inside the remat, so the
+recompute gathers again), keeping their split over the ``model`` axis: the
+attention, MLP and experts compute their own heads, columns and experts,
+the embedding and the logits their own vocabulary rows.  The
+(B, S, d) activations between blocks are the rank's batch rows, whole
+along d and the same on every rank of the model axis (the JAX
+``act_spec``).  hymba's mamba heads and the xLSTM blocks keep no model
+split in compute: their weights are gathered over the model axis too and
+they run replicated.
+
 Caches, which prefill fills and decode steps update in place (the JAX
 package returns new arrays):
 - ``"kv"``: (k, v) of (L, B, C, Hkv, hd); with a sliding window a ring of
@@ -41,6 +54,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.parallel.tensor_parallel import (Axis, TensorParallel,
+                                                  copy_to, model_axis,
+                                                  reduce_from, split_axis)
 from .config import ModelConfig
 from .layers import (Attention, Mlp, Norms, Stack, _dense_init, _param,
                      apply_attention, apply_cross_attention, apply_mlp,
@@ -223,17 +239,19 @@ def _layer_window(cfg: ModelConfig, lid: int) -> int | None:
 def _dense_block(bp: dict, x, cfg: ModelConfig, *, positions, window=None,
                  q_offset=0, kv_cache=None, cache_index=None,
                  mamba_state=None, single_step=False, enc_out=None,
-                 cross_p=None, attention=flash_attention):
+                 cross_p=None, attention=flash_attention,
+                 tp: Axis | None = None):
     """One decoder block: attention (with hymba's mamba heads beside it),
     whisper's cross-attention, then the MLP or the MoE, each behind a norm.
     Returns (x, aux: the MoE's float32 router loss, else 0.0, the new
-    mamba state or None)."""
+    mamba state or None).  ``tp``: the model axis that ``bp``'s weights
+    are split over."""
     aux = 0.0
     h = block_norm(x, bp["norms"], 0, cfg)
     attn_out = apply_attention(bp["attn"], h, cfg, positions=positions,
                                window=window, q_offset=q_offset,
                                kv_cache=kv_cache, cache_index=cache_index,
-                               attention=attention)
+                               attention=attention, tp=tp)
     new_mamba = None
     if cfg.family == "hybrid":
         state, conv_state = mamba_state if mamba_state is not None \
@@ -252,12 +270,13 @@ def _dense_block(bp: dict, x, cfg: ModelConfig, *, positions, window=None,
                              "encoder output (enc_out)")
         h = block_norm(x, cross_p["norms"], 0, cfg)
         x = x + apply_cross_attention(cross_p["attn"], h, enc_out,
-                                      attention=attention)
+                                      attention=attention, cfg=cfg, tp=tp)
     h = block_norm(x, bp["norms"], 1, cfg)
     if cfg.is_moe:
-        ff, aux = apply_moe(bp["moe"], h, cfg)
+        ff, aux = apply_moe(bp["moe"], h, cfg, tp=tp)   # (B, S, d), aux
     else:
-        ff = apply_mlp(bp["mlp"], h)
+        ff = apply_mlp(bp["mlp"], h,
+                       split_axis(tp, bp["mlp"]["wo"].shape[0], cfg.d_ff))
     return x + ff, aux, new_mamba
 
 
@@ -266,47 +285,90 @@ class _EmbedLookup(torch.autograd.Function):
     one-hot rows with the output gradient.  Indexing's own backward
     accumulates repeated tokens with atomics on the card (and in parallel
     on the CPU), so two runs of one step could round differently; a matrix
-    product sums in a fixed order, which a bitwise resume needs."""
+    product sums in a fixed order, which a bitwise resume needs.
+
+    With ``first`` (not None) the table holds the vocabulary rows
+    ``first, first + 1, ...`` only: a token outside them looks up zeros
+    and has no one-hot row."""
 
     @staticmethod
-    def forward(ctx, table, tokens):
-        ctx.save_for_backward(tokens)
-        ctx.rows = table.shape[0]
-        return table[tokens]
+    def forward(ctx, table, tokens, first):
+        rows = table.shape[0]
+        ctx.rows = rows
+        if first is None:
+            ctx.save_for_backward(tokens)
+            return table[tokens]
+        idx = tokens - first
+        ctx.save_for_backward(idx)
+        inside = (idx >= 0) & (idx < rows)
+        return torch.where(inside[..., None],
+                           table[idx.clamp(0, rows - 1)], 0)
 
     @staticmethod
     def backward(ctx, grad):
         tokens, = ctx.saved_tensors
         rows = torch.arange(ctx.rows, device=tokens.device)
         one_hot = (tokens.reshape(-1, 1) == rows).to(grad.dtype)
-        return one_hot.T @ grad.reshape(-1, grad.shape[-1]), None
+        return one_hot.T @ grad.reshape(-1, grad.shape[-1]), None, None
 
 
-def embed_tokens(model: LM, tokens):
-    x = _EmbedLookup.apply(model.embed, tokens)       # (B, S, d) gather
+def embed_tokens(model: LM, tokens, *, table=None, tp: Axis | None = None):
+    """The scaled embeddings (B, S, d) of ``tokens``; ``table`` (the model's
+    unless given) may hold this rank's vocabulary rows of ``tp``, whose
+    lookups are then summed over it."""
+    table = model.embed if table is None else table
+    vt = split_axis(tp, table.shape[0], model.cfg.padded_vocab)
+    first = None if vt is None else vt.offset(table.shape[0])
+    x = reduce_from(_EmbedLookup.apply(table, tokens, first), vt)
     return x * torch.tensor(model.cfg.d_model ** 0.5, dtype=x.dtype)
 
 
-def _prepend_frontend(model: LM, x, frontend_embeds):
-    """vlm: project the stub patch embeddings (B, F, d) and put them before
-    the text, dropping the last F text positions so that S stays."""
-    fe = torch.einsum("bsd,de->bse", frontend_embeds.to(x.dtype),
-                      model.frontend_proj)
+def _prepend_frontend(x, frontend_embeds, proj):
+    """vlm: project the stub patch embeddings (B, F, d) by ``proj`` and put
+    them before the text, dropping the last F text positions so that S
+    stays."""
+    fe = torch.einsum("bsd,de->bse", frontend_embeds.to(x.dtype), proj)
     return torch.cat([fe, x[:, :x.shape[1] - fe.shape[1]]], dim=1)
 
 
-def _final_logits(model: LM, x):
+def _final_logits(model: LM, x, tp: TensorParallel | None = None,
+                  table=None):
+    """Logits (..., V_pad) float32, pad columns -1e30.  Under ``tp`` the
+    rank's vocabulary columns only, from the gathered ``table`` (the
+    embedding, gathered once by the caller) or head."""
     cfg = model.cfg
     if cfg.nonparametric_norm:
         x = layer_norm_nonparametric(x, cfg.norm_eps)
     else:
-        x = rms_norm(x, model.final_norm, cfg.norm_eps)
-    head = model.embed.T if cfg.tie_embeddings else model.head
-    logits = torch.einsum("bsd,dv->bsv", x, head).float()
+        x = rms_norm(x, _weight(model, "final_norm", tp), cfg.norm_eps)
+    if cfg.tie_embeddings:
+        head = (model.embed if table is None else table).T
+    else:
+        head = _weight(model, "head", tp)
+    vt = split_axis(model_axis(tp), head.shape[1], cfg.padded_vocab)
+    logits = torch.einsum("bsd,dv->bsv", copy_to(x, vt), head).float()
     if cfg.padded_vocab != cfg.vocab_size:            # mask pad columns
-        col = torch.arange(cfg.padded_vocab, device=logits.device)
+        first = 0 if vt is None else vt.offset(head.shape[1])
+        col = torch.arange(first, first + head.shape[1],
+                           device=logits.device)
         logits = torch.where(col < cfg.vocab_size, logits, -1e30)
     return logits
+
+
+def _weight(model: LM, name: str, tp: TensorParallel | None):
+    """Top-level parameter ``name`` in its compute form: under ``tp``
+    gathered over the data axes from the rank's shard."""
+    t = getattr(model, name)
+    return t if tp is None else tp.weight(name, t)
+
+
+def whole_modules(cfg: ModelConfig) -> tuple[str, ...]:
+    """Parameter-name prefixes of the modules that compute replicated on
+    the model axis under the sharded step (their weights gathered whole):
+    hymba's mamba heads and the xLSTM blocks."""
+    if cfg.family == "ssm":
+        return ("blocks.",)
+    return ("blocks.mamba.",) if cfg.family == "hybrid" else ()
 
 
 # ============================================================== train mode
@@ -339,25 +401,33 @@ def _maybe_remat(fn, remat: str):
     raise ValueError(f"remat {remat!r}: one of none, block, full")
 
 
-def _train_block(bp, cp, x, *, cfg, positions, window, enc_out, attention):
+def _train_block(bp, cp, x, *, cfg, positions, window, enc_out, attention,
+                 tp=None):
+    if tp is not None:      # the layer's FSDP gathers, inside the remat
+        bp = tp.weights(bp, "blocks")
+        cp = None if cp is None else tp.weights(cp, "cross")
     x, aux, _ = _dense_block(bp, x, cfg, positions=positions, window=window,
                              enc_out=enc_out, cross_p=cp,
-                             attention=attention)
+                             attention=attention, tp=model_axis(tp))
     return x, aux
 
 
-def _encoder_layer(bp, x, *, cfg, positions, attention):
+def _encoder_layer(bp, x, *, cfg, positions, attention, tp=None):
+    if tp is not None:
+        bp = tp.weights(bp, "encoder")
+    ax = model_axis(tp)
     # The JAX encoder calls apply_attention with its default causal=True,
     # which ropes q and k, and an all-zero mask: rope without causality.
     h = block_norm(x, bp["norms"], 0, cfg)
     x = x + apply_attention(bp["attn"], h, cfg, positions=positions,
-                            causal=False, attention=attention)
+                            causal=False, attention=attention, tp=ax)
     h = block_norm(x, bp["norms"], 1, cfg)
-    return x + apply_mlp(bp["mlp"], h)
+    return x + apply_mlp(bp["mlp"], h,
+                         split_axis(ax, bp["mlp"]["wo"].shape[0], cfg.d_ff))
 
 
 def _run_encoder(model: LM, frontend_embeds, *, remat: str = "none",
-                 attention=flash_attention):
+                 attention=flash_attention, tp: TensorParallel | None = None):
     """whisper's encoder: non-causal self-attention over the stub frame
     embeddings (B, F, d), projected by ``frontend_proj``."""
     cfg = model.cfg
@@ -366,11 +436,12 @@ def _run_encoder(model: LM, frontend_embeds, *, remat: str = "none",
                          "embeddings (B, frames, d_model)")
     x = frontend_embeds.to(pdtype(cfg))
     if cfg.frontend is not None:
-        x = torch.einsum("bsd,de->bse", x, model.frontend_proj)
+        x = torch.einsum("bsd,de->bse", x,
+                         _weight(model, "frontend_proj", tp))
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     layer = _maybe_remat(functools.partial(
-        _encoder_layer, cfg=cfg, positions=positions, attention=attention),
-        remat)
+        _encoder_layer, cfg=cfg, positions=positions, attention=attention,
+        tp=tp), remat)
     for bp in model.encoder.layers():
         x = layer(bp, x)
     return x
@@ -382,9 +453,11 @@ def _xlstm_states(cfg: ModelConfig, batch: int, device=None):
             slstm_state((n_rep,), batch, cfg, device))
 
 
-def _xlstm_rep(bp, x, mst, sst, *, cfg):
+def _xlstm_rep(bp, x, mst, sst, *, cfg, tp=None):
     """One repetition: rep - 1 mLSTM blocks then one sLSTM block, each a
     residual behind its norm (xLSTM blocks carry no separate FFN)."""
+    if tp is not None:      # gathered whole: the blocks run replicated
+        bp = tp.weights(bp, "blocks")
     rep, _ = _xlstm_pattern(cfg)
     norm = bp["norms"]["norm_0"]
     new = []
@@ -400,14 +473,15 @@ def _xlstm_rep(bp, x, mst, sst, *, cfg):
     return x + out, mst, sst
 
 
-def _run_xlstm(model: LM, x, states=None, *, remat: str = "none"):
+def _run_xlstm(model: LM, x, states=None, *, remat: str = "none",
+               tp: TensorParallel | None = None):
     """The xLSTM stack over x (B, S, d) from ``states`` (zeros if None);
     returns (x, new states) in the layout of ``make_caches``."""
     cfg = model.cfg
     if states is None:
         states = _xlstm_states(cfg, x.shape[0], x.device)
     m_state, s_state = states
-    body = _maybe_remat(functools.partial(_xlstm_rep, cfg=cfg), remat)
+    body = _maybe_remat(functools.partial(_xlstm_rep, cfg=cfg, tp=tp), remat)
     new_m, new_s = [], []
     for r, bp in enumerate(model.blocks.layers()):
         x, mst, sst = body(bp, x, tuple(t[r] for t in m_state),
@@ -419,7 +493,8 @@ def _run_xlstm(model: LM, x, states=None, *, remat: str = "none"):
 
 
 def train_logits(model: LM, tokens, *, frontend_embeds=None,
-                 remat: str | None = None, attention=flash_attention):
+                 remat: str | None = None, attention=flash_attention,
+                 tp: TensorParallel | None = None):
     """tokens (B, S) -> (logits (B, S, V_pad) float32, aux float32).
 
     ``frontend_embeds`` (B, F, d): the VLM's patch embeddings, prepended
@@ -428,30 +503,37 @@ def train_logits(model: LM, tokens, *, frontend_embeds=None,
     vocabulary columns are -1e30; ``aux`` is the MoE router loss summed
     over layers (0 for the other families).  ``attention`` is the
     attention core: the kernel's wrapper, whose gradient is the plain
-    ``attend``'s, or ``layers.plain_attention`` to check it."""
+    ``attend``'s, or ``layers.plain_attention`` to check it.
+
+    ``tp``: the sharded step's plan, the model's parameters then the
+    rank's local shards and ``tokens`` its batch rows; the logits are the
+    rank's vocabulary columns (B, S, V_pad / model) where the vocabulary
+    is split over the model axis."""
     cfg = model.cfg
     s = tokens.shape[1]
     remat = cfg.remat if remat is None else remat
-    x = embed_tokens(model, tokens)
+    table = _weight(model, "embed", tp)
+    x = embed_tokens(model, tokens, table=table, tp=model_axis(tp))
     if cfg.family == "vlm" and frontend_embeds is not None:
-        x = _prepend_frontend(model, x, frontend_embeds)
+        x = _prepend_frontend(x, frontend_embeds,
+                              _weight(model, "frontend_proj", tp))
     aux = torch.zeros((), device=x.device)
     if cfg.family == "ssm":
-        x = _run_xlstm(model, x, remat=remat)[0]
-        return _final_logits(model, x), aux
+        x = _run_xlstm(model, x, remat=remat, tp=tp)[0]
+        return _final_logits(model, x, tp, table), aux
     enc_out = _run_encoder(model, frontend_embeds, remat=remat,
-                           attention=attention) \
+                           attention=attention, tp=tp) \
         if cfg.encoder_layers else None
     positions = torch.arange(s, device=x.device)[None, :]
     block = _maybe_remat(functools.partial(
         _train_block, cfg=cfg, positions=positions, enc_out=enc_out,
-        attention=attention), remat)
+        attention=attention, tp=tp), remat)
     cross = model.cross.layers() if cfg.encoder_layers \
         else [None] * cfg.n_layers
     for lid, (bp, cp) in enumerate(zip(model.blocks.layers(), cross)):
         x, a = block(bp, cp, x, window=_layer_window(cfg, lid))
         aux = aux + a
-    return _final_logits(model, x), aux
+    return _final_logits(model, x, tp, table), aux
 
 
 # ======================================================== prefill / decode
@@ -495,7 +577,7 @@ def prefill(model: LM, tokens, cache_len: int, *, frontend_embeds=None,
     b, s = tokens.shape
     x = embed_tokens(model, tokens)
     if cfg.family == "vlm" and frontend_embeds is not None:
-        x = _prepend_frontend(model, x, frontend_embeds)
+        x = _prepend_frontend(x, frontend_embeds, model.frontend_proj)
     if cfg.family == "ssm":
         x, states = _run_xlstm(model, x)
         return _final_logits(model, x[:, -1:])[:, 0], {"states": states}

@@ -16,12 +16,25 @@ of atomics on the card:
 - Dispatch and combine are one-hot contractions over the sequence,
   (B, E, C, S) against (B, S, D), exact in the forward since each one-hot
   row holds one 1; a gather's backward would scatter-add.
+
+Under the sharded training step (``tp``, the mesh's model axis) the
+router's expert columns are split over the axis and its scores gathered
+whole before the stable top-k, so every rank routes alike.  The experts
+then run in one of the two modes of the JAX ``_moe_axes``: with
+``moe_tp`` every rank holds every expert's slice of the hidden columns;
+without it, a rank holds whole experts and computes their slots of the
+dispatch and combine.  Either way the combined output is a partial sum,
+all-reduced over the axis once with the shared experts' (column- and
+row-parallel like the MLP).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from repro_torch.parallel.tensor_parallel import (Axis, copy_to,
+                                                  gather_from, reduce_from,
+                                                  scatter_to, split_axis)
 from .config import ModelConfig
 from .layers import _dense_init, _param
 
@@ -76,12 +89,19 @@ def top_k_one_hot(scores, k: int):
     return torch.einsum("...kn,...n->...k", one_hot, scores), idx, one_hot
 
 
-def apply_moe(p: dict, x, cfg: ModelConfig):
-    """x (B, S, d) -> ((B, S, d), aux); routing per sequence."""
+def apply_moe(p: dict, x, cfg: ModelConfig, tp: Axis | None = None):
+    """x (B, S, d) -> ((B, S, d), aux); routing per sequence.  ``tp``: the
+    model axis; ``p`` then holds this rank's router columns, experts or
+    expert columns, as its shapes say."""
     s = x.shape[1]
     c = capacity(cfg, s)
+    e, f = cfg.n_experts, cfg.expert_d_ff
+    rt = split_axis(tp, p["router"].shape[-1], e)    # router columns
+    et = split_axis(tp, p["w_gate"].shape[0], e)     # whole experts
+    ft = split_axis(tp, p["w_gate"].shape[-1], f)    # expert hidden columns
 
-    logits = torch.einsum("bsd,de->bse", x.float(), p["router"])
+    logits = torch.einsum("bsd,de->bse", copy_to(x.float(), rt), p["router"])
+    logits = gather_from(logits, rt, -1)
     probs = torch.softmax(logits, dim=-1)                   # (B, S, E) f32
     gate_vals, _, gate_one_hot = top_k_one_hot(probs, cfg.top_k)
     gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
@@ -90,8 +110,15 @@ def apply_moe(p: dict, x, cfg: ModelConfig):
     weights = (gate_vals[..., None] * gate_one_hot).sum(dim=2)   # (B, S, E)
     top_c_w, _, dispatch = top_k_one_hot(weights.transpose(1, 2), c)
     dispatch = dispatch.to(x.dtype)                          # (B, E, C, S)
+    if et is not None:                   # this rank's experts' slots
+        n = p["w_gate"].shape[0]
+        dispatch = dispatch[:, et.offset(n):et.offset(n) + n]
+        top_c_w = scatter_to(top_c_w, et, 1)
+    part = et or ft
+    if et is None:
+        top_c_w = copy_to(top_c_w, ft)
 
-    xg = torch.einsum("becs,bsd->becd", dispatch, x)
+    xg = torch.einsum("becs,bsd->becd", dispatch, copy_to(x, part))
     gate = torch.einsum("becd,edf->becf", xg, p["w_gate"])
     up = torch.einsum("becd,edf->becf", xg, p["w_up"])
     # SiLU in the parameter dtype, as the JAX package's experts
@@ -101,11 +128,19 @@ def apply_moe(p: dict, x, cfg: ModelConfig):
     out = torch.einsum("becs,becd->bsd", dispatch, y)
 
     if cfg.n_shared_experts:
-        sg = torch.einsum("bsd,df->bsf", x, p["shared_gate"])
-        su = torch.einsum("bsd,df->bsf", x, p["shared_up"])
+        st = split_axis(tp, p["shared_gate"].shape[-1],
+                        f * cfg.n_shared_experts)
+        xs = copy_to(x, st)
+        sg = torch.einsum("bsd,df->bsf", xs, p["shared_gate"])
+        su = torch.einsum("bsd,df->bsf", xs, p["shared_up"])
         sh = nn.functional.silu(sg.float()).to(x.dtype) * su
-        out = out + torch.einsum("bsf,fd->bsd", sh, p["shared_down"])
-    return out, router_aux_loss(probs, gate_one_hot, cfg)
+        shared = torch.einsum("bsf,fd->bsd", sh, p["shared_down"])
+        if st is part:                # one all-reduce of both partial sums
+            out = out + shared
+        else:
+            out, shared = reduce_from(out, part), reduce_from(shared, st)
+            out, part = out + shared, None
+    return reduce_from(out, part), router_aux_loss(probs, gate_one_hot, cfg)
 
 
 def router_aux_loss(probs, gate_one_hot, cfg: ModelConfig):

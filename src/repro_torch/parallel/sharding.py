@@ -143,9 +143,18 @@ def block_compute_shardings(blocks: dict, blocks_axes: dict,
 def distribute(t: torch.Tensor, mesh: DeviceMesh,
                placements) -> DTensor:
     """A DTensor of ``placements`` from a tensor every rank holds in full:
-    each rank keeps its own chunk, with no communication."""
-    return DTensor.from_local(t, mesh, replicated(mesh),
-                              run_check=False).redistribute(mesh, placements)
+    each rank keeps a copy of its own chunk (a storage of the chunk's size,
+    not a view of ``t``), with no communication.  A dimension split over
+    several mesh axes is chunked by the outer axis first, DTensor's
+    order."""
+    local = t
+    coord = mesh.get_coordinate()
+    for dim, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            local = local.chunk(mesh.size(dim), dim=pl.dim)[coord[dim]]
+    return DTensor.from_local(local.clone(
+        memory_format=torch.contiguous_format), mesh, tuple(placements),
+        run_check=False)
 
 
 def shard_model(model: nn.Module, mesh: DeviceMesh, *,

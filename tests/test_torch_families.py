@@ -232,7 +232,7 @@ def test_moe_drops_bind_at_capacity_factor_1_25(case, monkeypatch):
     8.0 none is."""
     over = {}
 
-    def counting(p, x, cfg):
+    def counting(p, x, cfg, **kw):
         probs = torch.softmax(torch.einsum("bsd,de->bse", x.float(),
                                            p["router"]), dim=-1)
         top = torch.sort(probs, dim=-1, descending=True,
@@ -243,7 +243,7 @@ def test_moe_drops_bind_at_capacity_factor_1_25(case, monkeypatch):
         over[cfg.capacity_factor] = max(
             over.get(cfg.capacity_factor, 0),
             int(routed.max()) - capacity(cfg, x.shape[1]))
-        return apply_moe(p, x, cfg)
+        return apply_moe(p, x, cfg, **kw)
 
     apply_moe = port_model.apply_moe
     monkeypatch.setattr(port_model, "apply_moe", counting)

@@ -1510,3 +1510,106 @@ def test_examples_on_card_equal_their_cpu_runs():
     assert (card["tokens"], card["searches"]) == (cpu["tokens"],
                                                   cpu["searches"])
     assert len(card["completions"]) == 12
+
+
+# ------------------------------ slice 12: the tensor-parallel training step
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@pytest.mark.gpu
+def test_world_of_one_nccl_tp_step_equals_the_plain_step():
+    """The sharded step on a (1, 1) mesh over NCCL (its collectives run,
+    over groups of one) equals the plain one-device step: reduced olmo-1b
+    in float32, two steps, loss within 1e-5 and parameters within 1e-4;
+    the kernel launched twice a layer a step in both."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.sharding import (batch_sharding, distribute,
+                                               shard_model)
+    dev = _cuda_or_skip()
+    assert not dist.is_initialized()
+    cfg = dataclasses.replace(reduced_config(get_config("olmo-1b")),
+                              dtype="float32")
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4,
+                      seed=0)
+    step = make_train_step(cfg, opt_cfg)
+    plain = init_model(cfg, seed=0, device=dev)
+    state = init_opt_state(param_tree(plain), opt_cfg)
+    native.reset_launches()
+    for i in range(2):
+        plain, state, m = step(plain, state, batch_at_step(data, i,
+                                                           device=dev))
+    assert native.LAUNCHES["flash_attention"] == 2 * 2 * cfg.n_layers
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        model = init_model(cfg, seed=0, device=dev)
+        shard_model(model, mesh, fsdp=cfg.fsdp)
+        ostate = init_opt_state(param_tree(model), opt_cfg)
+        native.reset_launches()
+        for i in range(2):
+            batch = {k: distribute(v, mesh, batch_sharding(mesh))
+                     for k, v in batch_at_step(data, i, device=dev).items()}
+            model, ostate, ms = step(model, ostate, batch)
+        torch.cuda.synchronize()
+        assert native.LAUNCHES["flash_attention"] == 2 * 2 * cfg.n_layers
+        assert abs(float(ms["loss"]) - float(m["loss"])) < 1e-5
+        for (n, p), q in zip(model.named_parameters(), plain.parameters()):
+            assert float((p.full_tensor() - q).abs().max()) < 1e-4, n
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h_local", [1, 2])
+def test_attention_kernel_at_local_head_counts(dtype, h_local):
+    """The kernel at a model-axis rank's head counts: ``h_local`` q heads
+    over the one kv head they read (qwen3-4b's 32 q over 8 kv heads on a
+    16-way axis gives 2 over 1; olmo-1b's 16 heads give 1 over 1), causal
+    and windowed, against the plain version at the file's tolerances."""
+    dev = _cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(h_local)
+    q = torch.randn(2, 96, h_local, 128, device=dev, generator=g).to(dtype)
+    k, v = (torch.randn(2, 96, 1, 128, device=dev, generator=g).to(dtype)
+            for _ in range(2))
+    tol = 2e-6 if dtype == torch.float32 else 2e-2
+    for kw in (dict(causal=True), dict(causal=True, window=32)):
+        before = native.LAUNCHES["flash_attention"]
+        got = flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert native.LAUNCHES["flash_attention"] == before + 1
+        want = attention_ref(q, k, v, **kw)
+        assert float((got.float() - want.float()).abs().max()) < tol
+
+
+@pytest.mark.gpu
+def test_reduced_mixtral_resume_is_bitwise_on_card(tmp_path, monkeypatch):
+    """Reduced mixtral-8x22b (bf16, remat block) trained 4 steps straight
+    and crashed at step 3 then restarted from the step-2 checkpoint, under
+    ``torch.use_deterministic_algorithms``: the last two losses equal bit
+    for bit on the card (the MoE's routing, dispatch and combine included)."""
+    from repro_torch.launch.train import train
+    dev = _cuda_or_skip()
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        kw = dict(steps=4, batch=4, seq_len=32, ckpt_every=2, verbose=False,
+                  device=dev)
+        straight = train("mixtral-8x22b", ckpt_root=tmp_path / "a", **kw)
+        with pytest.raises(RuntimeError):
+            train("mixtral-8x22b", ckpt_root=tmp_path / "b", crash_at=3,
+                  **kw)
+        again = train("mixtral-8x22b", ckpt_root=tmp_path / "b", **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert again.resumed_from == 2
+    assert again.losses == straight.losses[2:]
+    assert all(np.isfinite(straight.losses))
