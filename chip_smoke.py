@@ -35,8 +35,9 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    or plan phase), one simulated burst latency a flush; each chip-axis
    form is timed on the operands of its most frequent launch shape there.
    At the same size, ``RunConfig.event_serial()`` against the serial
-   sharded replay and one open-loop point (read_priority, 8 streams), its
-   read values held to the oracle in the event loop's dispatch order.
+   sharded replay; at a quarter of the key pages one open-loop point
+   (read_priority, 8 streams), its read values held to the oracle in the
+   event loop's dispatch order.
    Then, at 1,024 key pages and 2,000 ops, the timeline on the card
    against the same replay on the CPU, and the open-loop point's simulated
    latencies against the scalar backend's.
@@ -74,8 +75,8 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    caught on the card (a ``sim_search`` that launches twice trips SIM101,
    a ``sim_gather`` that calls ``.item()`` on its output trips SIM102
    through sync debug mode); and the conservation books (SIM201–SIM203)
-   of a full-size sharded YCSB-B split replay, 8 x 2 chips, on a metered
-   timeline, its reads equal to the oracle.
+   of a sharded YCSB-B split replay at a quarter of the key pages, 8 x 2
+   chips, on a metered timeline, its reads equal to the oracle.
 4. The §V indexes on the ``batched`` backend, each path against a numpy
    oracle, with the first bursts of each kind also run on
    ``ScalarBackend`` over a copy of the stored pages and held equal
@@ -180,11 +181,27 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    equal op for op, peaks as phase 9 holds them), then timed against the
    roofline's compute and memory terms (the fake collectives move nothing,
    and leave gathered buffers unfilled, so the values are meaningless).
-11. One JSON line of the kernels, their launches and times.
-12. The card's ``nvidia-smi`` name and power limit, then the last line:
+11. The sharded serve step (``serve/serve_step.py`` on a mesh: weights
+   split over ``model`` with per-layer FSDP gathers, caches in the JAX
+   layout, decode attention split along the cache and merged by the
+   kernel's log-sum-exp).  (a) A world of one over NCCL on a (1, 1) mesh:
+   qwen3-4b and hymba-1.5b (on its 1,024-slot ring, a 1,100-token prompt)
+   at full width with 2 layers in float32, a prefill and 4 decode steps
+   fed the same tokens, against the plain ``prefill`` and ``decode_step``
+   from the same seed: logits and every cache leaf within 1e-5, one
+   ``flash_attention`` launch a layer a step and nothing else.  (b) Rank 0
+   of the single-pod 16 x 16 mesh over ``fake``: qwen3-4b and hymba-1.5b
+   ``decode_32k`` at full width and depth (8 batch rows, 2,048 and 64
+   cache slots), traced by ``lower_cell`` and run on the card under the
+   same counter (counts equal op for op, peaks as phase 9 holds them),
+   then timed against the compute and memory terms; values not checked.
+   Phase 2 also holds the kernel's log-sum-exp output against the plain
+   version's at the decode shapes of these ranks.
+12. One JSON line of the kernels, their launches and times.
+13. The card's ``nvidia-smi`` name and power limit, then the last line:
     ``{"ok": true, "device": {...}}``.
 
-The launch counts are set to 0 just before each path of phases 3–10 and read
+The launch counts are set to 0 just before each path of phases 3–11 and read
 just after it; they show which kernels ran on that path. The replay scale
 is 20% of the paper's 650 MiB index: 16,384 key pages and 16,384 value
 pages of 4 KiB on 16 chips, for every replay path, the sharded and reliable
@@ -306,6 +323,10 @@ from repro_torch.serve.batching import Request, ServeEngine  # noqa: E402
 from repro_torch.serve.kvcache import PagedStats, SimPagedKVCache  # noqa: E402
 from repro_torch.workload.ycsb import KEYS_PER_PAGE, generate  # noqa: E402
 
+# The open-loop point and the metered conservation replay load a quarter
+# of the replays' key pages (their checks do not depend on the size), to
+# keep the smoke within its time with phase 11 added.
+CUT_LOAD = 4
 # The H100's peaks (HBM bytes/s, 32-bit integer ops/s, bf16 and float32
 # FLOP/s) come from repro_torch.launch.roofline, with their sources; the
 # bound of an attention launch counts its multiply-adds at the rate of its
@@ -1023,17 +1044,19 @@ def attn_keep(shape, kw):
     return keep
 
 
-def attn_bound(dtype, shape, kw):
+def attn_bound(dtype, shape, kw, lse=False):
     """The multiply-adds of the visible (query, key) pairs of QK^T and PV at
     the dtype's peak (the count the kernel's flop formula gives), against q
-    and the output once and the k/v rows some row sees once."""
+    and the output once (with ``lse`` the float32 log-sum-exps too) and the
+    k/v rows some row sees once."""
     b, sq, sk, h, hkv, d = shape
     masks = dict(causal=kw.get("causal", True), window=kw.get("window"),
                  q_offset=kw.get("q_offset"))
     _, seen = attention_pairs(sq, sk, **masks)
     es = torch.finfo(dtype).bits // 8
     flops = attention_flops(b, sq, sk, h, d, **masks)
-    nbytes = es * (2 * b * h * sq * d + 2 * b * hkv * seen * d)
+    nbytes = es * (2 * b * h * sq * d + 2 * b * hkv * seen * d) \
+        + (4 * b * sq * h if lse else 0)
     peak = PEAK_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
     t_ops, t_bytes = flops / peak, nbytes / HBM_BW
     return (max(t_ops, t_bytes) * 1e3,
@@ -1092,6 +1115,76 @@ def attention_checks(dev, floor_ms) -> dict:
             f"{row['ms'] / row['library_ms']:.3f}), bound "
             f"{row['bound'][0]:.6f} ms ({row['bound'][1]})")
     return dict(max_abs_err=err, shape=ATTN_TIMED[0], **row)
+
+
+# The kernel's log-sum-exp output, which the sharded decode step merges the
+# ranks' partial attentions by (phase 11), at those ranks' decode shapes:
+# rank 0 of qwen3-4b decode_32k on the 16 x 16 mesh (8 rows, 32 q heads
+# over its 2,048-slot slice of 8 kv heads, every slot seen), slices that
+# see half their slots and none, hymba-1.5b's rank 0 (64 ring slots of 5
+# kv heads), and phase 11 (a)'s float32 world of one.  The log-sum-exp is
+# held at LSE_TOL (absolute, and relative to its size), the output at
+# ATTN_TOL and equal bit for bit to the launch without the log-sum-exp.
+QWEN_RANK0 = (8, 1, 2048, 32, 8, 128)
+ATTN_LSE_CASES = [
+    ("qwen3-4b decode_32k, rank 0 of 16 x 16, every slot seen",
+     torch.bfloat16, QWEN_RANK0, dict(causal=True, q_offset=32767)),
+    ("qwen3-4b decode_32k slice, half its slots seen", torch.bfloat16,
+     QWEN_RANK0, dict(causal=True, q_offset=1023)),
+    ("qwen3-4b decode_32k slice, no slot seen", torch.bfloat16, QWEN_RANK0,
+     dict(causal=True, q_offset=-1)),
+    ("hymba-1.5b decode_32k, rank 0 of 16 x 16, 64 ring slots",
+     torch.bfloat16, (8, 1, 64, 25, 5, 64), dict(causal=True, q_offset=1023)),
+    ("qwen3-4b world of one, float32", torch.float32,
+     (2, 1, 128, 32, 8, 128), dict(causal=True, q_offset=67)),
+    ("hymba-1.5b world of one ring, float32", torch.float32,
+     (2, 1, 1024, 25, 5, 64), dict(causal=True, q_offset=1023))]
+LSE_TOL = 1e-5
+
+
+def attention_lse_checks(dev) -> None:
+    """The kernel with ``return_lse`` against ``attention_ref``'s at each of
+    ATTN_LSE_CASES; times of the kernel (and of its launch without the
+    log-sum-exp), the plain version (with its log-sum-exp) and SDPA
+    (output only) beside the bound, which counts the log-sum-exp's float32
+    bytes too."""
+    for i, (label, dtype, shape, kw) in enumerate(ATTN_LSE_CASES):
+        q, k, v = attn_inputs(dev, dtype, shape, 100 + i)
+        out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+        alone = flash_attention(q, k, v, **kw)
+        p_out, p_lse = attention_ref(q, k, v, return_lse=True, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(out, alone):
+            raise AssertionError(f"flash_attention [{label}]: the output "
+                                 "with the log-sum-exp differs from the one "
+                                 "without")
+        tol = ATTN_TOL[dtype]
+        d_out = float((out.float() - p_out.float()).abs().max())
+        if not ((out.float() - p_out.float()).abs()
+                <= tol + tol * p_out.float().abs()).all():
+            raise AssertionError(f"flash_attention [{label}]: output "
+                                 f"{d_out} beyond {tol}")
+        d_lse = (lse - p_lse).abs()
+        if not (d_lse <= LSE_TOL + LSE_TOL * p_lse.abs()).all() or \
+                not torch.isfinite(lse).all():
+            raise AssertionError(f"flash_attention [{label}]: log-sum-exp "
+                                 f"{float(d_lse.max())} beyond {LSE_TOL}")
+        ms = device_ms(lambda: flash_attention(q, k, v, return_lse=True,
+                                               **kw), 100)
+        alone_ms = device_ms(lambda: flash_attention(q, k, v, **kw), 100)
+        plain_ms = device_ms(lambda: attention_ref(q, k, v, return_lse=True,
+                                                   **kw), 20)
+        lib_ms = device_ms(lambda: sdpa(q, k, v, shape, kw), 100)
+        t_bound, by = attn_bound(dtype, shape, kw, lse=True)
+        log(f"kernel flash_attention with its log-sum-exp [{label}, "
+            f"{tuple(shape)}, q_offset {kw['q_offset']}]: output max abs err "
+            f"{d_out:.3e} (tol {tol}), log-sum-exp max abs err "
+            f"{float(d_lse.max()):.3e} (tol {LSE_TOL}), the output equal to "
+            f"the launch without it; {ms:.6f} ms/launch (without it "
+            f"{alone_ms:.6f}), plain "
+            f"{plain_ms:.6f} ms, library (SDPA, output only) {lib_ms:.6f} "
+            f"ms (kernel/library {ms / lib_ms:.3f}), bound {t_bound:.6f} ms "
+            f"({by})")
 
 
 def bound(ops, nbytes):
@@ -1556,9 +1649,10 @@ def sharded_path(kp, n_ops, batched) -> dict:
     ONE launch (launches by kernel equal the batched replay's), one burst
     latency a flush, one write latency a program, positive energy.  At the
     same size, ``RunConfig.event_serial()`` equals the serial sharded
-    fused replay in values and counters, and one open-loop point
-    (read_priority, 8 streams) is printed with its values held to the
-    oracle in the event loop's dispatch order.  At 1,024 key pages and
+    fused replay in values and counters.  One open-loop point
+    (read_priority, 8 streams) at 1 / CUT_LOAD of the key pages is printed
+    with its values held to the oracle in the event loop's dispatch
+    order.  At 1,024 key pages and
     2,000 ops, the timeline on the card equals the same replay with
     device="cpu", and the open-loop point's simulated latencies equal the
     scalar backend's.  Returns the launches by kernel summed over the
@@ -1638,15 +1732,16 @@ def sharded_path(kp, n_ops, batched) -> dict:
                                    scheduler="read_priority", burst=64,
                                    write_buffer=True, write_high_water=8,
                                    seed=1, **kw)
-    wl = generate(n_ops, n_key_pages=kp, read_ratio=0.5, alpha=0.9, seed=1)
+    okp = kp // CUT_LOAD
+    wl = generate(n_ops, n_key_pages=okp, read_ratio=0.5, alpha=0.9, seed=1)
     point, grew, backend, _ = run_replay(
-        "sharded open loop", wl, kp, n_chips, open_loop(record_trace=True),
+        "sharded open loop", wl, okp, n_chips, open_loop(record_trace=True),
         TimedSharded, **geometry)
     del backend
     for k in launches:
         launches[k] += grew[k]
     order = [qi for _, kind, qi in point.trace if kind == "dispatch"]
-    want, _ = oracle(wl, kp, order)
+    want, _ = oracle(wl, okp, order)
     reads = wl.ops == 0
     if sorted(order) != list(range(len(wl.ops))) or not (
             point.read_hits[reads].all()
@@ -1654,7 +1749,7 @@ def sharded_path(kp, n_ops, batched) -> dict:
         raise AssertionError("open-loop read values differ from the oracle "
                              "in dispatch order")
     lat = point.latency
-    log(f"sharded open loop [{kp} key pages, {n_ops} ops, read 0.5, Zipf "
+    log(f"sharded open loop [{okp} key pages, {n_ops} ops, read 0.5, Zipf "
         f"0.9, Poisson 300,000 ops/s offered, read_priority, 8 streams, "
         f"write buffer 8]: simulated read p50 {lat.read_p50_ns:.1f} ns, p99 "
         f"{lat.read_p99_ns:.1f} ns, achieved {lat.qps:.1f} ops/s; "
@@ -2435,9 +2530,11 @@ def doctored_path() -> None:
 
 
 def conservation_full_path(kp, n_ops) -> dict:
-    """SIM201–SIM203 over the full-size sharded YCSB-B split replay (8 x 2
-    chips, as phase 3b) on a metered timeline, a run of its own: reads
-    equal the oracle, and the busy-time, energy and byte books balance."""
+    """SIM201–SIM203 over a sharded YCSB-B split replay (8 x 2 chips, as
+    phase 3b; 1 / CUT_LOAD of the key pages, all the ops) on a metered
+    timeline, a run of its own: reads equal the oracle, and the busy-time,
+    energy and byte books balance."""
+    kp //= CUT_LOAD
     label, wl, config = ycsb_paths(kp, n_ops)[0]
     tl = make_metered_timeline(params=FlashParams(
         channels=SSD_CHANNELS, dies_per_channel=SSD_DIES))
@@ -4260,6 +4357,195 @@ def tp_training_phase(dev, smi) -> dict:
     return total
 
 
+# ---------------------------- phase 11: the sharded serve step
+# (a) A world of one over NCCL: each arch at full width with SERVE_TP_LAYERS
+# layers in float32, a prefill and SERVE_TP_STEPS decode steps of the
+# sharded step beside the plain one (hymba on its ring: the prompt passes
+# the 1,024 slots, so prefill rolls).
+SERVE_TP_LAYERS, SERVE_TP_STEPS, SERVE_TP_BATCH = 2, 4, 2
+SERVE_TP_RUNS = (("qwen3-4b", 64, 128), (HYMBA_ARCH, 1100, HYMBA_CACHE_LEN))
+SERVE_TP_TOL = 1e-5
+# (b) Rank 0 of the single-pod mesh over the fake group, on the card.
+SERVE_TP_CELLS = (("qwen3-4b", "decode_32k"), (HYMBA_ARCH, "decode_32k"))
+SERVE_TP_CELL_STEPS = 5                    # timed after the counted one
+
+
+def _leaf_list(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaf_list(tree[k])]
+    if isinstance(tree, tuple):
+        return [t for x in tree for t in _leaf_list(x)]
+    return [tree]
+
+
+def nccl_serve_world_of_one_path(dev) -> dict:
+    """The sharded serve steps (``serve_prefill``, ``serve_decode_step``)
+    on a (1, 1) ``("data", "model")`` mesh over NCCL, whose collectives run
+    over groups of one (the cache split along its slots over an axis of
+    one, decode merging its one partial softmax), against the plain
+    ``prefill`` and ``decode_step`` from the same seed, fed the same
+    tokens: logits and every cache leaf within SERVE_TP_TOL.  The launch
+    counts are the sharded runs': one ``flash_attention`` launch a layer a
+    prefill and a decode step, nothing else."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.sharding import (batch_sharding, distribute,
+                                               shard_model)
+    from repro_torch.serve.serve_step import (serve_decode_step,
+                                              serve_prefill)
+    total = dict.fromkeys(native.LAUNCHES, 0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        for arch, prompt_len, cache_len in SERVE_TP_RUNS:
+            cfg = dataclasses.replace(get_config(arch),
+                                      n_layers=SERVE_TP_LAYERS,
+                                      dtype="float32")
+            rng = np.random.default_rng(11)
+            prompt = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (SERVE_TP_BATCH, prompt_len))).to(dev)
+            fed = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+                SERVE_TP_STEPS, SERVE_TP_BATCH, 1))).to(dev)
+            start_run()
+            plain = init_model(cfg, seed=0, device=dev)
+            logits, caches = prefill(plain, prompt, cache_len)
+            want = [logits]
+            for i in range(SERVE_TP_STEPS):
+                logits, caches = decode_step(plain, fed[i], caches,
+                                             prompt_len + i)
+                want.append(logits)
+            want += _leaf_list(caches)
+            del plain, caches
+            model = init_model(cfg, seed=0, device=dev)
+            shard_model(model, mesh, fsdp=cfg.fsdp)
+            rows = batch_sharding(mesh)
+            native.reset_launches()
+            logits, caches = serve_prefill(
+                model, distribute(prompt, mesh, rows), cache_len)
+            got = [logits.to_local()]
+            for i in range(SERVE_TP_STEPS):
+                _, logits, caches = serve_decode_step(
+                    model, distribute(fed[i], mesh, rows), caches,
+                    prompt_len + i)
+                got.append(logits.to_local())
+            torch.cuda.synchronize()
+            grew = dict(native.LAUNCHES)
+            got += [t.to_local() for t in _leaf_list(caches)]
+            errs = [float((g.double() - w.double()).abs().max())
+                    for g, w in zip(got, want)]
+            bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
+            slots = caches["kv"][0].to_local().shape[2]
+            del model, caches, got, want
+            if max(errs) >= SERVE_TP_TOL:
+                raise AssertionError(f"serve world of one {arch}: logits and "
+                                     f"caches {errs} apart")
+            n_launch = cfg.n_layers * (1 + SERVE_TP_STEPS)
+            if grew["flash_attention"] != n_launch or \
+                    sum(grew.values()) != n_launch:
+                raise AssertionError(f"serve world of one {arch}: launches "
+                                     f"{grew}, expected {n_launch}")
+            add_launches(total, grew)
+            log(f"sharded serve, a world of one over {dist.get_backend()} "
+                f"({arch} full width, {SERVE_TP_LAYERS} layers, float32, "
+                f"batch {SERVE_TP_BATCH}, prompt {prompt_len}, cache_len "
+                f"{cache_len} = {slots} slots, {SERVE_TP_STEPS} decode "
+                f"steps): logits and {len(errs) - 1 - SERVE_TP_STEPS} cache "
+                f"leaves at most {max(errs)} from the plain steps' (bound "
+                f"{SERVE_TP_TOL}; bitwise {bitwise}); launches {grew}")
+    finally:
+        dist.destroy_process_group()
+    return total
+
+
+def fake_rank_serve_path(arch, shape_name, smi) -> dict:
+    """Rank 0 of the single-pod (16 x 16) mesh over the ``fake`` process
+    group runs the cell's sharded decode step at full width and depth on
+    its own shards and cache slots: traced on meta tensors by
+    ``lower_cell``, then built on the card and run once under the same
+    counter (every count equal, the counter's peaks equal, the allocator's
+    within PEAK_TOL), then timed against the roofline's compute and memory
+    terms (the fake collectives move nothing and leave gathered buffers
+    unfilled: values are not checked)."""
+    dev = torch.device("cuda", 0)
+    cfg = get_config(arch)
+    shape = SHAPES[shape_name]
+    t0 = start_run()
+    with fake_world(DRYRUN_WORLD["single"]):
+        mesh = production_mesh(multi_pod=False)
+        traced, report = lower_cell(cfg, shape, mesh)
+        rl = analyze(traced, mesh.size())
+        cell = build_step(cfg, shape, mesh, device=dev)
+        caches = cell.inputs[1]
+        kv = tuple(caches["kv"][0].to_local().shape)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        native.reset_launches()
+        before = torch.cuda.memory_allocated()
+        _, ran = count(cell.step, *cell.inputs, device_type="cuda")
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        counted = dict(native.LAUNCHES)
+        times = []
+        for _ in range(SERVE_TP_CELL_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            cell.run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        del cell, caches
+    label = f"{arch} {shape_name} rank 0"
+    if ran.key() != traced.key():
+        raise AssertionError(f"{label}: the trace counts {traced} but the "
+                             f"card's run {ran}")
+    if ran.peak_bytes != traced.peak_bytes:
+        raise AssertionError(f"{label}: traced peak {traced.peak_bytes}, "
+                             f"the run's storages {ran.peak_bytes}")
+    beside = before - ran.start_bytes
+    card_peak = peak - beside
+    if abs(card_peak - traced.peak_bytes) > PEAK_TOL * traced.peak_bytes:
+        raise AssertionError(f"{label}: traced peak {traced.peak_bytes}, "
+                             f"the allocator's {card_peak}")
+    if counted["flash_attention"] != cfg.n_layers or \
+            sum(counted.values()) != cfg.n_layers:
+        raise AssertionError(f"{label}: launches {counted}")
+    step_s = sorted(times)[len(times) // 2]
+    device_bound = max(rl.compute_s, rl.memory_s)
+    if step_s < device_bound:
+        raise AssertionError(f"{label}: a step of {step_s} s beats its "
+                             f"device bound {device_bound} s")
+    grew = dict(native.LAUNCHES)
+    log(f"sharded serve, {label} of {report['mesh']} over the fake group "
+        f"(full width and depth, {report['n_devices']} ranks): local k cache "
+        f"{kv}; trace = card run: {traced.n_ops} ops, dot FLOPs "
+        f"{traced.dot_flops}, bytes accessed {traced.bytes_accessed}, "
+        f"collective bytes {traced.collective_bytes}; peak traced "
+        f"{traced.peak_bytes} B, allocator {card_peak} B "
+        f"({card_peak / traced.peak_bytes - 1:+.4f}; {peak} less {beside} "
+        f"beside); terms compute {rl.compute_s * 1e3:.6f} ms, memory "
+        f"{rl.memory_s * 1e3:.6f} ms, collective "
+        f"{rl.collective_s * 1e3:.6f} ms, bound {rl.bound_s * 1e3:.6f} ms "
+        f"({rl.dominant}); step ms {[round(1e3 * t, 3) for t in times]}, "
+        f"median {step_s * 1e3:.3f} ms = {step_s / device_bound:.3f} x the "
+        f"device bound (no communication on the card); flash_attention "
+        f"launches {counted['flash_attention']} a step; "
+        f"{time.perf_counter() - t0:.1f} s with the trace; card {smi}")
+    return grew
+
+
+def tp_serve_phase(dev, smi) -> dict:
+    t0 = time.perf_counter()
+    total = dict.fromkeys(native.LAUNCHES, 0)
+    add_launches(total, nccl_serve_world_of_one_path(dev))
+    for arch, shape_name in SERVE_TP_CELLS:
+        add_launches(total, fake_rank_serve_path(arch, shape_name, smi))
+    start_run()
+    log(f"phase 11 (the sharded serve step) took "
+        f"{time.perf_counter() - t0:.3f} s; launches {total}")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--key-pages", type=int, default=16_384)
@@ -4287,8 +4573,9 @@ def main(argv=None) -> int:
 
     # 2. Kernel checks (these launches are not the main paths').
     rows = kernel_checks(dev)
+    attention_lse_checks(dev)
 
-    # 3.-10. The main paths.
+    # 3.-11. The main paths.
     launches, reports = main_path(args.key_pages, args.n_ops)
     for grew in (sharded_path(args.key_pages, args.n_ops, reports),
                  reliability_phase(args.key_pages, args.n_ops),
@@ -4297,14 +4584,15 @@ def main(argv=None) -> int:
                  index_phase(args.key_pages), quickstart_path(),
                  serve_path(dev), reduced_serve_path(dev),
                  training_phase(dev, smi), families_phase(dev),
-                 roofline_phase(dev), tp_training_phase(dev, smi)):
+                 roofline_phase(dev), tp_training_phase(dev, smi),
+                 tp_serve_phase(dev, smi)):
         for k in launches:
             launches[k] += grew[k]
     for k in KERNELS:
         if launches[k] == 0:
             raise AssertionError(f"{k} never launched on the main paths")
 
-    # 11. Kernels line.
+    # 12. Kernels line.
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],
          "replaces": KERNELS[k][1], "launches": launches[k],
@@ -4312,7 +4600,7 @@ def main(argv=None) -> int:
          "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
          "bound_by": r["bound"][1], "library_ms": r.get("library_ms")}
         for k, r in rows.items()]}), flush=True)
-    # 12. The card, then the result.
+    # 13. The card, then the result.
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -2,6 +2,7 @@
 and its table.
 
     PYTHONPATH=src python3 scripts/dryrun_all.py [--jobs 8] [--limit 1800] [--shape train_4k]
+    PYTHONPATH=src python3 scripts/dryrun_all.py --cell hymba-1.5b:train_4k
 
 Each cell is one ``python -m repro_torch.launch.dryrun --arch A --shape S
 --mesh M`` process, at most ``--jobs`` at once, the longest traces first
@@ -11,8 +12,10 @@ Reports land in ``experiments/dryrun_torch/``; the table (markdown, one
 line an arch x shape, the single-pod mesh's value before the multi-pod
 one's) goes to standard output; ``--table-only`` prints it from the
 reports already there; ``--shape`` (repeatable) keeps those shapes' cells
-and rows only.  The numbers are computed from the traced program with
-the H100's peaks (``repro_torch.launch.roofline``), not measured.  Needs
+and rows only, and ``--cell ARCH:SHAPE`` (repeatable) adds one arch's
+cell of another shape (both meshes).  The numbers are computed from the
+traced program with the H100's peaks (``repro_torch.launch.roofline``),
+not measured.  Needs
 no card; a full-size training trace holds its whole autograd graph in
 host memory, so run it where the host has room.
 """
@@ -75,21 +78,21 @@ def row(arch: str, shape: str, reps: list) -> str:
     ]) + " |"
 
 
-def table(shapes=tuple(SHAPES)) -> list:
+def table(pairs) -> list:
+    """The table's rows, one an (arch, shape) of ``pairs``, in order."""
     lines = ["| arch | shape | FLOPs/dev | bytes/dev | collective B/dev | "
              "dominant | bound s | traced peak GB (fits 80 GB?) | roofline "
              "fraction |", "| --- " * 9 + "|"]
     skipped = []
-    for arch in sorted(ARCHS):
-        for shape in shapes:
-            paths = [OUT_DIR / f"{arch}__{shape}__{m}.json"
-                     for m in ("single", "multi")]
-            reps = [json.loads(p.read_text()) if p.exists() else None
-                    for p in paths]
-            if all(r is not None and "skipped" in r for r in reps):
-                skipped.append(arch)
-                continue
-            lines.append(row(arch, shape, reps))
+    for arch, shape in pairs:
+        paths = [OUT_DIR / f"{arch}__{shape}__{m}.json"
+                 for m in ("single", "multi")]
+        reps = [json.loads(p.read_text()) if p.exists() else None
+                for p in paths]
+        if all(r is not None and "skipped" in r for r in reps):
+            skipped.append(arch)
+            continue
+        lines.append(row(arch, shape, reps))
     if skipped:
         lines.append(f"\nlong_500k skipped (full attention): "
                      f"{', '.join(skipped)}")
@@ -104,17 +107,25 @@ def main() -> int:
                     help="print the table of the reports already written")
     ap.add_argument("--shape", action="append", choices=list(SHAPES),
                     help="only this shape's cells (repeatable)")
+    ap.add_argument("--cell", action="append", default=[],
+                    help="ARCH:SHAPE, one more arch's cell (repeatable)")
     args = ap.parse_args()
-    shapes = tuple(args.shape or SHAPES)
+    shapes = tuple(args.shape or ([] if args.cell else SHAPES))
+    pairs = [(a, s) for a in sorted(ARCHS) for s in shapes]
+    for cell in args.cell:
+        arch, shape = cell.split(":")
+        if arch not in ARCHS or shape not in SHAPES:
+            ap.error(f"--cell {cell}: unknown arch or shape")
+        if (arch, shape) not in pairs:
+            pairs.append((arch, shape))
     if not args.table_only:
         OUT_DIR.mkdir(parents=True, exist_ok=True)
-        cells = [(a, s, m) for m in ("single", "multi") for a in sorted(ARCHS)
-                 for s in shapes]
+        cells = [(a, s, m) for m in ("single", "multi") for a, s in pairs]
         cells.sort(key=lambda c: (c[0] not in SLOW,
                                   c[1] not in ("prefill_32k", "train_4k")))
         with ThreadPoolExecutor(args.jobs) as pool:
             list(pool.map(lambda c: run(c, args.limit), cells))
-    lines = table(shapes)
+    lines = table(pairs)
     print("\n".join(lines))
     return sum("not traced" in ln or "no report" in ln or "error" in ln
                for ln in lines)

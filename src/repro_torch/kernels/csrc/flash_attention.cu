@@ -18,7 +18,12 @@
 // j <= q_offset + i (causal) and j > q_offset + i - window (window > 0).
 // Logits, running max, denominator and accumulator are float32; masked
 // logits are -1e30 and enter with probability 0; a row that sees no key
-// gives 0.  The output is rounded once, to q's dtype.
+// gives 0.  The output is rounded once, to q's dtype.  Optionally the
+// kernel also writes each row's log-sum-exp, float32 (B, Sq, H): M + log L
+// in natural-log units of the scaled, masked logits, or -1e30 for a row
+// that sees no key.  A caller that splits the keys over several launches
+// (decode attention split along the cache over a mesh axis) merges their
+// outputs by it.
 //
 // What bounds it on the H100: at the serve path's shapes (qwen3-4b prefill
 // Sq = Sk <= 16; decode Sq = 1 against a 128-slot cache) the bytes: q, k
@@ -91,6 +96,7 @@ constexpr int kMaxRows = 16 * kWarps;
 constexpr int kPadBytes = 16;        // per staged row
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -184,6 +190,7 @@ struct Tile {
   int causal, window, q_offset;
   int k_begin, k_end;     // keys any row of the block can see
   float scale;
+  size_t lse_off;         // elements to the block's (b, first q head) in lse
 };
 
 // The keys [lo, hi) that row r of the block (0 <= r < 16 * row_warps)
@@ -248,6 +255,13 @@ __device__ __forceinline__ size_t q_row(const Tile& t, int rg) {
 
 // Stage the block's real q rows.  Padding rows stay as they are: every
 // logit of theirs is masked (row_cols), so their contents never count.
+// Element offset of block row rg in the log-sum-exp (B, Sq, H).
+__device__ __forceinline__ size_t lse_row(const Tile& t, int rg, int heads) {
+  const int i = t.group.div(rg);
+  return t.lse_off + static_cast<size_t>(i) * heads +
+         (rg - i * static_cast<int>(t.group.d));
+}
+
 template <typename T, int D>
 __device__ __forceinline__ void load_q(char* q_s, const T* q, const Tile& t,
                                        int rows) {
@@ -313,6 +327,10 @@ struct WarpBf16 {
   static constexpr int kRows = 2;      // rows a thread holds
   // m is in log2 units: exp(logit - max) = exp2(m' - max').
   static __device__ float exp_m(float x) { return fast_exp2(x); }
+  // The row's natural log-sum-exp from its max m and denominator l.
+  static __device__ float lse(float m, float l) {
+    return l > 0.f ? (m + log2f(l)) * kLn2 : kNegInf;
+  }
   uint32_t qa[D / 16][4];
   float acc[D / 8][4];
   float m[2], l[2];
@@ -499,6 +517,9 @@ struct WarpF32 {
   static constexpr int kSpan = 8;
   static constexpr int kRows = 4;
   static __device__ float exp_m(float x) { return expf(x); }
+  static __device__ float lse(float m, float l) {
+    return l > 0.f ? m + logf(l) : kNegInf;
+  }
   float2 acc[4][D / 16];
   float m[4], l[4];
   int2 cols[4];
@@ -673,9 +694,9 @@ struct WarpOf<float, D> {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) attn_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, int sq, int sk, FastDiv group, int kv_heads,
-    float scale,
-    int causal, int window, int q_offset, int row_warps) {
+    T* __restrict__ out, float* __restrict__ lse, int sq, int sk,
+    FastDiv group, int kv_heads, float scale, int causal, int window,
+    int q_offset, int row_warps) {
   extern __shared__ __align__(16) char smem[];
   constexpr int kStride = row_stride<T, D>();
   const int rows = 16 * row_warps;
@@ -699,6 +720,9 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(
             static_cast<size_t>(hk) * group.d * D;
   t.kv_off = static_cast<size_t>(b) * sk * t.kv_stride +
              static_cast<size_t>(hk) * D;
+  const int heads = kv_heads * static_cast<int>(group.d);
+  t.lse_off = static_cast<size_t>(b) * sq * heads +
+              static_cast<size_t>(hk) * group.d;
   t.causal = causal;
   t.window = window;
   t.q_offset = q_offset;
@@ -774,7 +798,8 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(
   }
   // One split, or a block with at most one step of keys to see (a prefill
   // of 16, a short decode): the warp that took the step writes its rows
-  // straight from registers; the others hold nothing.
+  // straight from registers, and their log-sum-exps from one lane a row;
+  // the others hold nothing.
   const int n_steps = t.k_end > t.k_begin
                           ? (t.k_end - 1) / kStep - t.k_begin / kStep + 1
                           : 0;
@@ -786,6 +811,10 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(
     for (int j = 0; j < Warp::kRows; ++j) {
       if (dst[j]) {
         w.write(dst[j], j, l_row[j] > 0.f ? 1.f / l_row[j] : 0.f, lane);
+        if (lse && lane % Warp::kSpan == 0) {
+          lse[lse_row(t, t.row0 + w.row(j, rw, lane), heads)] =
+              Warp::lse(w.m[j], l_row[j]);
+        }
       }
     }
     return;
@@ -793,7 +822,8 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(
   // Otherwise every warp stashes (m, l) of its rows and its accumulator in
   // lane-major order, and after one barrier each warp of a row tile sums
   // its share of the output fragments over the splits' stashes, times
-  // f = exp(m_s - M) / L.
+  // f = exp(m_s - M) / L; the first split's warp writes the log-sum-exps
+  // M + log L.
   float2* ml = reinterpret_cast<float2*>(merge_s);        // [warp][row][lane]
   float* acc_buf = reinterpret_cast<float*>(merge_s + kWarps * 4 * 32 * 8);
 #pragma unroll
@@ -803,6 +833,7 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(
   w.stash(acc_buf + warp * 16 * D, lane);
   __syncthreads();                    // ... and every key stage is consumed
   float f[kWarps][Warp::kRows];
+  float row_lse[Warp::kRows];
 #pragma unroll
   for (int j = 0; j < Warp::kRows; ++j) {
     float mx = kNegInf;
@@ -824,8 +855,17 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(
     const float inv = den > 0.f ? 1.f / den : 0.f;
 #pragma unroll
     for (int sp = 0; sp < kWarps; ++sp) f[sp][j] *= inv;
+    row_lse[j] = Warp::lse(mx, den);
   }
   Warp::merge_write(acc_buf, rw, row_warps, splits, ks, lane, f, dst);
+  if (lse && ks == 0 && lane % Warp::kSpan == 0) {
+#pragma unroll
+    for (int j = 0; j < Warp::kRows; ++j) {
+      if (dst[j]) {
+        lse[lse_row(t, t.row0 + w.row(j, rw, lane), heads)] = row_lse[j];
+      }
+    }
+  }
 }
 
 // Blocks a launch must reach before the launcher packs more row tiles into
@@ -846,9 +886,9 @@ int sm_count(int device) {
 
 template <typename T, int D>
 int launch_typed(const void* q, const void* k, const void* v, void* out,
-                 int batch, int sq, int sk, int group, int kv_heads,
-                 float scale, int causal, int window, int q_offset, int device,
-                 cudaStream_t stream) {
+                 float* lse, int batch, int sq, int sk, int group,
+                 int kv_heads, float scale, int causal, int window,
+                 int q_offset, int device, cudaStream_t stream) {
   static unsigned long long attr_set = 0;      // devices, one bit each
   const unsigned long long bit = 1ull << (device & 63);
   if (!(attr_set & bit)) {
@@ -874,7 +914,7 @@ int launch_typed(const void* q, const void* k, const void* v, void* out,
   attn_kernel<T, D><<<dim3((total + rows - 1) / rows, kv_heads, batch),
                       kThreads, smem_bytes<T, D>(rows), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), sq, sk,
+      static_cast<const T*>(v), static_cast<T*>(out), lse, sq, sk,
       FastDiv(static_cast<uint32_t>(group)), kv_heads, scale, causal, window,
       q_offset, row_warps);
   return static_cast<int>(cudaGetLastError());
@@ -882,12 +922,12 @@ int launch_typed(const void* q, const void* k, const void* v, void* out,
 
 template <typename T>
 int launch_dim(const void* q, const void* k, const void* v, void* out,
-               int batch, int sq, int sk, int d, int group, int kv_heads,
-               float scale, int causal, int window, int q_offset, int device,
-               cudaStream_t stream) {
+               float* lse, int batch, int sq, int sk, int d, int group,
+               int kv_heads, float scale, int causal, int window,
+               int q_offset, int device, cudaStream_t stream) {
 #define FA_CASE(DIM)                                                         \
   case DIM:                                                                  \
-    return launch_typed<T, DIM>(q, k, v, out, batch, sq, sk, group,         \
+    return launch_typed<T, DIM>(q, k, v, out, lse, batch, sq, sk, group,    \
                                 kv_heads, scale, causal, window, q_offset,   \
                                 device, stream);
   switch (d) {
@@ -909,13 +949,15 @@ int launch_dim(const void* q, const void* k, const void* v, void* out,
 
 // q, out: (batch, sq, heads, d); k, v: (batch, sk, kv_heads, d); all of
 // one element type, dtype 0 = float32, 1 = bfloat16; heads a multiple of
-// kv_heads; d a multiple of 16 from 16 to 128; window 0 = none.
+// kv_heads; d a multiple of 16 from 16 to 128; window 0 = none.  lse:
+// float32 (batch, sq, heads), each row's log-sum-exp, or null for none.
 // Contiguous, 16-byte aligned, on `device`.  Launches on `stream` and
 // returns cudaGetLastError() (cudaErrorInvalidValue for a dtype, d or head
 // count it does not take).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int batch,
-                                      int sq, int sk, int d, int heads,
+                                      const void* v, void* out, void* lse,
+                                      int batch, int sq, int sk, int d,
+                                      int heads,
                                       int kv_heads, float scale, int causal,
                                       int window, int q_offset, int dtype,
                                       int device, void* stream) {
@@ -927,13 +969,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   const int group = heads / kv_heads;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch_dim<float>(q, k, v, out, batch, sq, sk, d, group, kv_heads,
-                             scale, causal, window, q_offset, device, s);
+    return launch_dim<float>(q, k, v, out, static_cast<float*>(lse), batch,
+                             sq, sk, d, group, kv_heads, scale, causal, window,
+                             q_offset, device, s);
   }
   if (dtype == 1) {
-    return launch_dim<__nv_bfloat16>(q, k, v, out, batch, sq, sk, d, group,
-                                     kv_heads, scale, causal, window, q_offset,
-                                     device, s);
+    return launch_dim<__nv_bfloat16>(q, k, v, out, static_cast<float*>(lse),
+                                     batch, sq, sk, d, group, kv_heads, scale,
+                                     causal, window, q_offset, device, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -24,6 +24,13 @@ on meta tensors and under ``FakeTensorMode`` its fake implementation gives
 the output's shape and launches nothing, and ``FlopCounterMode`` (and
 ``launch/trace_analysis.py``) count its useful FLOPs by the formula
 registered here, the one ``launch/roofline.py`` bounds the kernel with.
+
+``return_lse=True`` also returns each row's log-sum-exp (B, Sq, H) float32,
+which the kernel writes beside its output in the same launch (the op
+``repro_torch::flash_attention_lse_fwd``, the same formula): the sharded
+decode step splits attention along the cache and merges the ranks' partial
+outputs by it (``parallel/tensor_parallel.merge_split_attention``).  It is
+a forward-only output: under autograd the call raises.
 """
 from __future__ import annotations
 
@@ -41,13 +48,15 @@ MAX_GRID_YZ = 65_535         # the kernel's grid puts Hkv on y and B on z
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: int | None = None, scale: float | None = None,
-                    q_offset: int | None = None):
+                    q_offset: int | None = None, return_lse: bool = False):
     """Multi-head attention with optional causal / sliding-window masking.
 
     q: (B, Sq, H, D);  k, v: (B, Sk, Hkv, D), H a multiple of Hkv.  Query
     row i sits at absolute position ``q_offset + i`` (default ``Sk - Sq``)
     and sees keys ``q_offset + i - window < j <= q_offset + i``; a row that
-    sees no key gives 0.  Returns (B, Sq, H, D) in q's dtype.
+    sees no key gives 0.  Returns (B, Sq, H, D) in q's dtype, and with
+    ``return_lse`` also the rows' log-sum-exps (B, Sq, H) float32 of the
+    scaled, masked logits (``ref.NEG_INF`` for a row that sees no key).
     """
     b, sq, h, d = q.shape
     _, sk, hkv, _ = k.shape
@@ -57,7 +66,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError(f"window {window} must be positive")
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
-                             scale=scale, q_offset=q_offset)
+                             scale=scale, q_offset=q_offset,
+                             return_lse=return_lse)
     if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention: no implementation on {q.device}")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -76,9 +86,30 @@ def flash_attention(q, k, v, *, causal: bool = True,
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     mask = (bool(causal), None if window is None else int(window),
             float(scale), int(q_offset))
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    recording = torch.is_grad_enabled() and any(t.requires_grad
+                                                for t in (q, k, v))
+    if return_lse:
+        if recording:
+            raise ValueError("flash_attention: the log-sum-exp output has "
+                             "no gradient; call it under no_grad")
+        return _launch_lse(q, k, v, *mask)
+    if recording:
         return _FlashAttention.apply(q, k, v, *mask)
     return _launch(q, k, v, *mask)
+
+
+def _run(q, k, v, causal, window, scale, q_offset, lse):
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must be 16-byte aligned")
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    if q.numel():
+        native.launch("flash_attention_launch", q, k, v, out, lse, b, sq, sk,
+                      d, h, hkv, scale, int(causal), window or 0, q_offset,
+                      DTYPES[q.dtype], device=q.device)
+        native.LAUNCHES["flash_attention"] += 1
+    return out
 
 
 def launch_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -86,21 +117,23 @@ def launch_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   q_offset: int) -> torch.Tensor:
     """One launch of the kernel on checked, contiguous CUDA q, k, v: the
     body of the op ``_launch``."""
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("q, k and v must be 16-byte aligned")
-    b, sq, h, d = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
-    if q.numel():
-        native.launch("flash_attention_launch", q, k, v, out, b, sq, sk, d, h,
-                      hkv, scale, int(causal), window or 0, q_offset,
-                      DTYPES[q.dtype], device=q.device)
-        native.LAUNCHES["flash_attention"] += 1
-    return out
+    return _run(q, k, v, causal, window, scale, q_offset, None)
+
+
+def launch_kernel_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool, window: int | None, scale: float,
+                      q_offset: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`launch_kernel` that also has the kernel write the rows'
+    log-sum-exps (B, Sq, H) float32: the body of the op ``_launch_lse``."""
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    return _run(q, k, v, causal, window, scale, q_offset, lse), lse
 
 
 _launch = torch.library.custom_op("repro_torch::flash_attention_fwd",
                                   launch_kernel, mutates_args=())
+_launch_lse = torch.library.custom_op(
+    "repro_torch::flash_attention_lse_fwd", launch_kernel_lse,
+    mutates_args=())
 
 
 @_launch.register_fake
@@ -108,12 +141,22 @@ def _(q, k, v, causal, window, scale, q_offset):
     return q.new_empty(q.shape)
 
 
-@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+@_launch_lse.register_fake
+def _(q, k, v, causal, window, scale, q_offset):
+    return (q.new_empty(q.shape),
+            q.new_empty(q.shape[:3], dtype=torch.float32))
+
+
 def _launch_flops(q_shape, k_shape, v_shape, causal, window, scale, q_offset,
                   *args, **kwargs) -> int:
     b, sq, h, d = q_shape
     return attention_flops(b, sq, k_shape[1], h, d, causal=causal,
                            window=window, q_offset=q_offset)
+
+
+for _op in (torch.ops.repro_torch.flash_attention_fwd,
+            torch.ops.repro_torch.flash_attention_lse_fwd):
+    register_flop_formula(_op)(_launch_flops)
 
 
 class _FlashAttention(torch.autograd.Function):

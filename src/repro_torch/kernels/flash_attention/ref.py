@@ -8,7 +8,8 @@ NEG_INF = -1e30     # mask sentinel: exp(NEG_INF - m) is 0, never NaN
 
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None,
-                  scale: float | None = None, q_offset: int | None = None):
+                  scale: float | None = None, q_offset: int | None = None,
+                  return_lse: bool = False):
     """Dense reference attention.
 
     q: (B, Sq, H, D);  k, v: (B, Sk, Hkv, D) with H % Hkv == 0; q head h
@@ -18,7 +19,9 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None,
     ``j <= q_offset + i`` (causal) and ``j > q_offset + i - window``
     (window).  A row that sees no key gives 0.  Logits, softmax and the
     value product run in float32 (float64 for float64 inputs); the result
-    is in q's dtype.
+    is in q's dtype.  With ``return_lse`` also each row's log-sum-exp
+    (B, Sq, H) of the scaled, masked logits in that type, NEG_INF for a row
+    that sees no key: the kernel's second output.
     """
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -38,8 +41,14 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None,
     if window is not None:
         keep &= col > row - window
     s = torch.where(keep, s, NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    p = p / p.sum(dim=-1, keepdim=True)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    den = p.sum(dim=-1, keepdim=True)
+    p = p / den
     out = torch.einsum("bhqk,bkhd->bqhd", p, vx)
-    out = torch.where(keep.any(dim=-1)[None, :, None, None], out, 0.0)
-    return out.to(q.dtype)
+    seen = keep.any(dim=-1)
+    out = torch.where(seen[None, :, None, None], out, 0.0).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = (m + torch.log(den))[..., 0].transpose(1, 2)      # (B, Sq, H)
+    return out, torch.where(seen[None, :, None], lse, NEG_INF)

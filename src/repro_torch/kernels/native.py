@@ -47,7 +47,7 @@ SIGNATURES = {
                         _I, _P),
     "sim_fused_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _I, _P),
-    "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    "flash_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                ctypes.c_float, _I, _I, _I, _I, _I, _P),
 }
 

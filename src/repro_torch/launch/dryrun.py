@@ -25,16 +25,19 @@ sharded training step (``train/train_step.py``), the JAX package's GSPMD
 program: parameters and moments are DTensors placed by the JAX rules, each
 layer's weights are all-gathered over the data axes just before use and
 keep their split over ``model``, so rank 0 computes its own heads, MLP
-columns, experts and vocabulary rows of its batch shard, with the
-model-axis all-reduces and the FSDP reduce-scatters of the gradients
-(hymba's mamba heads and the xLSTM blocks are gathered whole and run
-replicated).  Prefill and decode cells keep the gathered-weight program
-until the serve path is sharded: every rank gathers the full weights into
-a plain model (:func:`gather_weights`) and runs its batch shard of tokens
-and caches, the caches whole along every other dimension, so the model
-axis repeats the same work there.  A decode step writes and reads
-position ``seq_len - 1``, a full cache.  So the per-device terms and peaks
-of those cells differ from the JAX package's; they are the port's.
+columns, experts, mamba channels, xLSTM heads and columns and vocabulary
+rows of its batch shard, with the model-axis all-reduces and the FSDP
+reduce-scatters of the gradients.  Prefill and decode cells trace the
+port's sharded serve steps (``serve/serve_step.py``), the JAX package's
+``serve_prefill`` and ``serve_decode_step`` under the same parameter
+placements, with the caches DTensors placed by ``specs.cache_shardings``
+(``CACHE_AXES``): rank 0 holds its batch rows of its slice of every k/v
+cache's slots, and of the recurrent states its channels or heads.  A
+prefill cell fills the rank's slots; a decode step writes position
+``seq_len - 1``, a full cache, and attends to the rank's slice, merging
+the partial softmaxes over ``model``.  That slot belongs to the last
+model-axis rank, but every rank dispatches the same ops for the write
+(``models/layers._write_token``), so rank 0's counts are any rank's.
 
 Each cell's report lands in ``experiments/dryrun_torch/<arch>__<shape>__
 <mesh>[__variant].json``.
@@ -67,9 +70,10 @@ from repro_torch.launch.mesh import production_mesh_spec
 from repro_torch.launch.roofline import HBM_BYTES, analyze, model_flops
 from repro_torch.launch.trace_analysis import count
 from repro_torch.models.config import InputShape, ModelConfig
-from repro_torch.models.model import LM, make_caches, prefill
+from repro_torch.models.model import LM, make_caches
 from repro_torch.parallel.sharding import shard_model
-from repro_torch.serve.serve_step import serve_decode_step
+from repro_torch.serve.serve_step import (serve_decode_step, serve_prefill,
+                                          sharded_caches)
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state
 from repro_torch.train.train_step import make_train_step
 
@@ -100,16 +104,6 @@ def production_mesh(multi_pod: bool) -> DeviceMesh:
     shape, axes = production_mesh_spec(multi_pod=multi_pod)
     return DeviceMesh("cuda", torch.arange(math.prod(shape)).view(shape),
                       mesh_dim_names=axes)
-
-
-def gather_weights(model, compute) -> None:
-    """Copy the full value of every DTensor parameter of ``model`` into the
-    same parameter of ``compute``, a plain model of the same config: one
-    gather over the mesh a parameter (the serve cells' program)."""
-    params = dict(model.named_parameters())
-    with torch.no_grad():
-        for name, q in compute.named_parameters():
-            q.copy_(params[name].full_tensor())
 
 
 @dataclasses.dataclass
@@ -179,21 +173,27 @@ def build_step(cfg: ModelConfig, shape: InputShape, mesh=None, *,
         return CellStep(make_train_step(cfg, opt_cfg, attention=attention),
                         (model, opt_state, batch), replicated)
 
-    def compute(model):
-        if mesh is None:
-            return model
-        local = LM(cfg, device)
-        gather_weights(model, local)
-        return local
+    def rows(t):
+        """The rank's batch rows as a DTensor over the data axes."""
+        if mesh is None or t is None:
+            return t
+        return DTensor.from_local(t, mesh, S.batch_shardings(
+            cfg, shape, mesh)["tokens"], run_check=False)
 
+    if mesh is not None:        # the cache dimensions the mesh leaves whole
+        S.cache_shardings(cfg, shape, mesh, S.cache_specs(cfg, shape),
+                          report=replicated)
+    caches = None if mesh is None else \
+        sharded_caches(model, mesh, shape.global_batch, s, device)
     if shape.mode == "prefill":
         tokens = torch.zeros((b, s), dtype=torch.int32, device=device)
         return CellStep(
-            lambda model, tokens, frontend: prefill(
-                compute(model), tokens, s, frontend_embeds=frontend),
-            (model, tokens, frontend), replicated)
+            lambda model, tokens, frontend, caches: serve_prefill(
+                model, tokens, s, frontend_embeds=frontend, caches=caches),
+            (model, rows(tokens), rows(frontend), caches), replicated)
 
-    caches = make_caches(cfg, b, s, device)
+    if mesh is None:
+        caches = make_caches(cfg, b, s, device)
     token = torch.zeros((b, 1), dtype=torch.int32, device=device)
     enc_out = None
     if cfg.encoder_layers:
@@ -201,8 +201,8 @@ def build_step(cfg: ModelConfig, shape: InputShape, mesh=None, *,
                               device=device)
     return CellStep(
         lambda model, caches, token, enc_out: serve_decode_step(
-            compute(model), token, caches, s - 1, enc_out=enc_out),
-        (model, caches, token, enc_out), replicated)
+            model, token, caches, s - 1, enc_out=enc_out),
+        (model, caches, rows(token), rows(enc_out)), replicated)
 
 
 def lower_cell(cfg: ModelConfig, shape: InputShape, mesh=None,

@@ -104,16 +104,18 @@ def cache_specs(cfg: ModelConfig, shape: InputShape):
 
 
 def cache_shardings(cfg: ModelConfig, shape: InputShape, mesh: DeviceMesh,
-                    caches: dict) -> dict:
+                    caches: dict, report: list | None = None) -> dict:
     """Placements of every cache leaf, in the caches' nesting; ``batch`` is
-    dropped where the global batch does not divide the data product."""
+    dropped where the global batch does not divide the data product.  The
+    dimensions a mesh axis does not divide are appended to ``report``."""
     batch_ok = shape.global_batch % _data_size(mesh) == 0
 
     def one(leaf, ax):
         if isinstance(leaf, tuple):
             return tuple(one(t, a) for t, a in zip(leaf, ax))
         ax = tuple(a if batch_ok or a != "batch" else None for a in ax)
-        return spec_for(tuple(leaf.shape), ax, mesh, fsdp=cfg.fsdp)
+        return spec_for(tuple(leaf.shape), ax, mesh, fsdp=cfg.fsdp,
+                        report=report)
 
     return {key: one(leaf, CACHE_AXES[key]) for key, leaf in caches.items()}
 

@@ -42,7 +42,9 @@ state cloned by ``torch.utils.checkpoint`` on the card, a CPU constant);
 ``lift_fresh`` only marks a Python constant as a tensor, and ops of the
 ``prim`` namespace are metadata queries that only a tensor subclass
 dispatches (a fake tensor's ``device``).  None of these is counted, so
-that a trace and a run on the card count the same ops.  A DTensor op is refused: its sharding
+that a trace and a run on the card count the same ops; nor is the scratch
+output of an op that the card leaves empty where meta and the CPU fill it
+(``log_sigmoid_forward``'s buffer).  A DTensor op is refused: its sharding
 propagation dispatches the op once more at the global shape, which no
 device runs; the port's steps compute on local shards.
 
@@ -90,6 +92,11 @@ _INPUT_ARGS = {"self", "input", "inputs", "input_tensor", "input_tensors",
                "tensor", "tensors"}
 _ALLOCATE_ONLY = {"empty", "empty_like", "empty_strided", "new_empty",
                   "new_empty_strided"}
+# Ops whose outputs past the first few are scratch that the card's kernel
+# leaves empty while the meta and CPU kernels give it the input's size:
+# ``log_sigmoid_forward``'s buffer (the xLSTM gates).  Only the leading
+# outputs count.
+_SCRATCH_AFTER = {"log_sigmoid_forward": 1}
 
 
 @dataclasses.dataclass
@@ -142,6 +149,7 @@ class _Op:
     writes: tuple           # positions of the arguments it writes
     allocates: bool         # only allocates (the ``empty`` family)
     waits: bool             # a collective's ``wait_tensor``
+    results: int | None     # the outputs that count (the rest scratch)
 
     @classmethod
     def of(cls, func) -> "_Op":
@@ -159,7 +167,8 @@ class _Op:
                          if a.alias_info is not None
                          and a.alias_info.is_write),
             allocates=name in _ALLOCATE_ONLY,
-            waits=name == "wait_tensor")
+            waits=name == "wait_tensor",
+            results=_SCRATCH_AFTER.get(name))
 
 
 class TraceCounter(TorchDispatchMode):
@@ -226,7 +235,7 @@ class TraceCounter(TorchDispatchMode):
         op = self._ops.get(func)
         if op is None:
             op = self._ops[func] = _Op.of(func)
-        outs = _flat(out, [])
+        outs = _flat(out, [])[:op.results]
         dev = self.device_type
         if op.waits:
             for src, dst in zip(ins[:1], outs[:1]):

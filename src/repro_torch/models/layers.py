@@ -24,6 +24,15 @@ in ``wi_gate``/``wi_up`` and row-parallel in ``wo``, each followed by one
 all-reduce over the axis.  A layer reads its local head and column counts
 from its weights' shapes.  With ``tp`` None (one device) the same code
 runs with no collective.
+
+A decode step against a cache that holds every kv head (split along its
+slots over the model axis, ``seq``: the JAX cache layout; or whole) writes
+the new token's k/v of every kv head (all-gathered where ``wk``/``wv``
+split them) in the rank that owns its slot and attends with q all-gathered
+to every head: over a slice, with the kernel's log-sum-exp, the partial
+outputs then merged over the axis (``merge_split_attention``) into the
+rank's own heads; over a whole cache, the rank keeps its own heads of the
+output.  A cache split by kv heads is attended by the rank's own heads.
 """
 from __future__ import annotations
 
@@ -32,8 +41,10 @@ from torch import nn
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import NEG_INF
-from repro_torch.parallel.tensor_parallel import (Axis, copy_to,
-                                                  reduce_from, split_axis)
+from repro_torch.parallel.tensor_parallel import (Axis, copy_to, gather_from,
+                                                  merge_split_attention,
+                                                  reduce_from, scatter_to,
+                                                  split_axis)
 from .config import ModelConfig
 
 
@@ -310,11 +321,24 @@ def _heads(p: dict, cfg: ModelConfig, tp: Axis | None):
     return tp, first, wk, wv
 
 
+def _write_token(ck, cv, k, v, index: int) -> None:
+    """Write the new tokens' k, v (B, S, Hkv, hd) at local slot ``index``
+    of this rank's cache slice when it falls there; a rank that does not
+    own the slot copies its nearest S slots onto themselves, so every rank
+    dispatches the same ops (a rank's trace is any rank's)."""
+    s, c = k.shape[1], ck.shape[1]
+    own = 0 <= index <= c - s
+    at = min(max(index, 0), c - s)
+    for cache, new in ((ck, k), (cv, v)):
+        src = (new if own else cache).narrow(1, 0 if own else at, s)
+        cache.narrow(1, at, s).copy_(src)
+
+
 def apply_attention(p: dict, x, cfg: ModelConfig, *, positions,
                     causal: bool = True, window: int | None = None,
                     q_offset: int = 0, kv_cache=None,
                     cache_index=None, attention=flash_attention,
-                    tp: Axis | None = None):
+                    tp: Axis | None = None, seq: Axis | None = None):
     """One self-attention layer; ``p`` holds the layer's weights.
 
     The caller picks the mask: query row i sits at absolute position
@@ -326,13 +350,23 @@ def apply_attention(p: dict, x, cfg: ModelConfig, *, positions,
     place at slot ``cache_index`` and x attends to the whole cache.
     ``attention`` is the attention core: the kernel's wrapper, or its plain
     version to check it.  ``tp``: the model axis; ``p`` then holds this
-    rank's heads and the output is summed over the axis.
+    rank's heads and the output is summed over the axis.  ``seq``: the
+    axis the cache's slots are split over (serving; the module docstring);
+    ``q_offset`` and ``cache_index`` are then positions in the whole cache.
     """
+    model_ax = tp
     tp, first, wk, wv = _heads(p, cfg, tp)
+    every = kv_cache is not None and \
+        kv_cache[0].shape[2] == cfg.n_kv_heads    # the cache's kv heads
+    if every:
+        wk, wv = p["wk"], p["wv"]
     x = copy_to(x, tp)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, wk)
     v = torch.einsum("bsd,dhk->bshk", x, wv)
+    if every:
+        kv_ax = split_axis(model_ax, wk.shape[-2], cfg.n_kv_heads)
+        k, v = gather_from(k, kv_ax, 2), gather_from(v, kv_ax, 2)
     if cfg.qk_norm:
         q = rms_norm(q, copy_to(p["q_norm"], tp), cfg.norm_eps)
         k = rms_norm(k, copy_to(p["k_norm"], tp), cfg.norm_eps)
@@ -342,16 +376,29 @@ def apply_attention(p: dict, x, cfg: ModelConfig, *, positions,
     if kv_cache is not None:
         ck, cv = kv_cache
         s = x.shape[1]
-        if not 0 <= cache_index <= ck.shape[1] - s:
+        slots = ck.shape[1] * (1 if seq is None else seq.size)
+        if not 0 <= cache_index <= slots - s:
             raise IndexError(f"cache slots [{cache_index}, {cache_index + s})"
-                             f" outside a cache of {ck.shape[1]}")
-        ck[:, cache_index:cache_index + s] = k.to(ck.dtype)
-        cv[:, cache_index:cache_index + s] = v.to(cv.dtype)
+                             f" outside a cache of {slots}")
+        first_slot = 0 if seq is None else seq.offset(ck.shape[1])
+        _write_token(ck, cv, k.to(ck.dtype), v.to(cv.dtype),
+                     cache_index - first_slot)
         k, v = ck, cv
-    out = attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+        q_offset -= first_slot
+        if every:           # every q head against every kv head held here
+            q = gather_from(q, tp, 2)
+    if seq is None:
+        out = attention(q, k, v, causal=causal, window=window,
+                        q_offset=q_offset)
+        if every:
+            out = scatter_to(out, tp, 2)
+    else:
+        out, lse = attention(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset, return_lse=True)
+        out = merge_split_attention(out, lse, seq, tp)
     if cfg.padded_heads != cfg.n_heads:
         # zero the padded heads' outputs so they contribute nothing
-        mask = head_pad_mask(cfg, out.device)[first:first + q.shape[2]]
+        mask = head_pad_mask(cfg, out.device)[first:first + out.shape[2]]
         out = out * mask.to(out.dtype)[None, None, :, None]
     return reduce_from(torch.einsum("bshk,hkd->bsd", out, p["wo"]), tp)
 

@@ -2,9 +2,11 @@
 decode.
 
   init_model(cfg, seed=0, device=None)                      -> LM
-  train_logits(model, tokens, frontend_embeds=None)         -> logits, aux
-  prefill(model, tokens, cache_len, frontend_embeds=None)   -> logits, caches
-  decode_step(model, token, caches, index, enc_out=None)    -> logits, caches
+  train_logits(model, tokens, frontend_embeds=None, tp=None) -> logits, aux
+  prefill(model, tokens, cache_len, frontend_embeds=None, tp=None)
+                                                            -> logits, caches
+  decode_step(model, token, caches, index, enc_out=None, tp=None)
+                                                            -> logits, caches
 
 The counterpart of the JAX package's ``models/model.py``: dense (granite,
 qwen3, olmo, starcoder2), moe (mixtral, kimi-k2), hybrid (hymba: attention
@@ -20,18 +22,23 @@ sliding-window config attends within its window, except on its global
 layers (``lid % global_attn_every == 0``); a decode step against a ring
 cache sees every written slot, with no window, global layers included.
 
-Under the sharded training step ``train_logits`` takes ``tp``, one
-rank's plan of the mesh (``parallel/tensor_parallel.py``), and the model's
-parameters hold the rank's local shards.  Each layer's weights are
-all-gathered over the data axes just before use (inside the remat, so the
-recompute gathers again), keeping their split over the ``model`` axis: the
-attention, MLP and experts compute their own heads, columns and experts,
-the embedding and the logits their own vocabulary rows.  The
-(B, S, d) activations between blocks are the rank's batch rows, whole
-along d and the same on every rank of the model axis (the JAX
-``act_spec``).  hymba's mamba heads and the xLSTM blocks keep no model
-split in compute: their weights are gathered over the model axis too and
-they run replicated.
+Under the sharded steps ``train_logits``, ``prefill`` and ``decode_step``
+take ``tp``, one rank's plan of the mesh (``parallel/tensor_parallel.py``),
+and the model's parameters hold the rank's local shards.  Each layer's
+weights are all-gathered over the data axes just before use (in training
+inside the remat, so the recompute gathers again), keeping their split
+over the ``model`` axis: the attention, MLP and experts compute their own
+heads, columns and experts, hymba's mamba heads their own channels, the
+xLSTM blocks their own heads and columns (``models/ssm.py``), the
+embedding and the logits their own vocabulary rows.  The (B, S, d)
+activations between blocks are the rank's batch rows, whole along d and
+the same on every rank of the model axis (the JAX ``act_spec``).  Under
+``tp`` the caches are the rank's shards in the JAX cache layout
+(``launch/specs.CACHE_AXES``): k/v split along their slots (``kv_seq``),
+the mamba state and conv tail along d, the mLSTM states by heads and the
+sLSTM states along d, wherever the model axis divides them.  Prefill fills
+the rank's slots from k/v of every kv head at those slots' positions;
+decode attends by slices of the cache (``models/layers.py``).
 
 Caches, which prefill fills and decode steps update in place (the JAX
 package returns new arrays):
@@ -55,8 +62,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.parallel.tensor_parallel import (Axis, TensorParallel,
-                                                  copy_to, model_axis,
-                                                  reduce_from, split_axis)
+                                                  copy_to, gather_from,
+                                                  model_axis, reduce_from,
+                                                  split_axis)
 from .config import ModelConfig
 from .layers import (Attention, Mlp, Norms, Stack, _dense_init, _param,
                      apply_attention, apply_cross_attention, apply_mlp,
@@ -240,25 +248,26 @@ def _dense_block(bp: dict, x, cfg: ModelConfig, *, positions, window=None,
                  q_offset=0, kv_cache=None, cache_index=None,
                  mamba_state=None, single_step=False, enc_out=None,
                  cross_p=None, attention=flash_attention,
-                 tp: Axis | None = None):
+                 tp: Axis | None = None, seq: Axis | None = None):
     """One decoder block: attention (with hymba's mamba heads beside it),
     whisper's cross-attention, then the MLP or the MoE, each behind a norm.
     Returns (x, aux: the MoE's float32 router loss, else 0.0, the new
     mamba state or None).  ``tp``: the model axis that ``bp``'s weights
-    are split over."""
+    are split over; ``seq``: the axis the kv cache's slots are split
+    over."""
     aux = 0.0
     h = block_norm(x, bp["norms"], 0, cfg)
     attn_out = apply_attention(bp["attn"], h, cfg, positions=positions,
                                window=window, q_offset=q_offset,
                                kv_cache=kv_cache, cache_index=cache_index,
-                               attention=attention, tp=tp)
+                               attention=attention, tp=tp, seq=seq)
     new_mamba = None
     if cfg.family == "hybrid":
         state, conv_state = mamba_state if mamba_state is not None \
             else (None, None)
         m_out, new_mamba = apply_mamba(bp["mamba"], h, cfg, state=state,
                                        conv_state=conv_state,
-                                       single_step=single_step)
+                                       single_step=single_step, tp=tp)
         # hymba: parallel attention and mamba heads, averaged after each
         # branch's normalization
         attn_out = 0.5 * (rms_norm(attn_out, eps=cfg.norm_eps)
@@ -362,15 +371,6 @@ def _weight(model: LM, name: str, tp: TensorParallel | None):
     return t if tp is None else tp.weight(name, t)
 
 
-def whole_modules(cfg: ModelConfig) -> tuple[str, ...]:
-    """Parameter-name prefixes of the modules that compute replicated on
-    the model axis under the sharded step (their weights gathered whole):
-    hymba's mamba heads and the xLSTM blocks."""
-    if cfg.family == "ssm":
-        return ("blocks.",)
-    return ("blocks.mamba.",) if cfg.family == "hybrid" else ()
-
-
 # ============================================================== train mode
 
 _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -447,28 +447,36 @@ def _run_encoder(model: LM, frontend_embeds, *, remat: str = "none",
     return x
 
 
-def _xlstm_states(cfg: ModelConfig, batch: int, device=None):
+def _xlstm_states(cfg: ModelConfig, batch: int, device=None, model=None):
+    """Zeroed states of the xLSTM stack; with ``model``, of the widths its
+    parameters hold (a rank's local heads and columns under ``tp``)."""
     rep, n_rep = _xlstm_pattern(cfg)
-    return (mlstm_state((n_rep, rep - 1), batch, cfg, device),
-            slstm_state((n_rep,), batch, cfg, device))
+    heads = width = None
+    if model is not None:
+        width = model.blocks.slstm.wx.shape[-1]
+        if rep > 1:
+            heads = model.blocks.mlstm.wqkv.shape[-2]
+    return (mlstm_state((n_rep, rep - 1), batch, cfg, device, heads=heads),
+            slstm_state((n_rep,), batch, cfg, device, width=width))
 
 
 def _xlstm_rep(bp, x, mst, sst, *, cfg, tp=None):
     """One repetition: rep - 1 mLSTM blocks then one sLSTM block, each a
     residual behind its norm (xLSTM blocks carry no separate FFN)."""
-    if tp is not None:      # gathered whole: the blocks run replicated
+    if tp is not None:      # the layer's FSDP gathers
         bp = tp.weights(bp, "blocks")
+    ax = model_axis(tp)
     rep, _ = _xlstm_pattern(cfg)
     norm = bp["norms"]["norm_0"]
     new = []
     for i in range(rep - 1):
         h = rms_norm(x, norm[i], cfg.norm_eps)
         out, st = apply_mlstm({k: w[i] for k, w in bp["mlstm"].items()}, h,
-                              cfg, state=tuple(t[i] for t in mst))
+                              cfg, state=tuple(t[i] for t in mst), tp=ax)
         x = x + out
         new.append(st)
     h = rms_norm(x, norm[rep - 1], cfg.norm_eps)
-    out, sst = apply_slstm(bp["slstm"], h, cfg, state=sst)
+    out, sst = apply_slstm(bp["slstm"], h, cfg, state=sst, tp=ax)
     mst = tuple(torch.stack(z) for z in zip(*new)) if new else mst
     return x + out, mst, sst
 
@@ -479,7 +487,7 @@ def _run_xlstm(model: LM, x, states=None, *, remat: str = "none",
     returns (x, new states) in the layout of ``make_caches``."""
     cfg = model.cfg
     if states is None:
-        states = _xlstm_states(cfg, x.shape[0], x.device)
+        states = _xlstm_states(cfg, x.shape[0], x.device, model)
     m_state, s_state = states
     body = _maybe_remat(functools.partial(_xlstm_rep, cfg=cfg, tp=tp), remat)
     new_m, new_s = [], []
@@ -538,6 +546,13 @@ def train_logits(model: LM, tokens, *, frontend_embeds=None,
 
 # ======================================================== prefill / decode
 
+def _cache_slots(cfg: ModelConfig, cache_len: int) -> int:
+    """Slots of the whole k/v cache: ``cache_len``, or a ring of
+    min(cache_len, window) with a sliding window."""
+    return cache_len if cfg.sliding_window is None \
+        else min(cache_len, cfg.sliding_window)
+
+
 def make_caches(cfg: ModelConfig, batch: int, cache_len: int,
                 device=None) -> dict:
     """Zeroed decode caches for the whole stack (the module docstring's
@@ -546,9 +561,8 @@ def make_caches(cfg: ModelConfig, batch: int, cache_len: int,
     if cfg.family == "ssm":
         return {"states": _xlstm_states(cfg, batch, device)}
     dt = pdtype(cfg)
-    c = cache_len if cfg.sliding_window is None \
-        else min(cache_len, cfg.sliding_window)
-    shape = (cfg.n_layers, batch, c, cfg.n_kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, batch, _cache_slots(cfg, cache_len),
+             cfg.n_kv_heads, cfg.head_dim)
     caches = {"kv": tuple(torch.zeros(shape, dtype=dt, device=device)
                           for _ in range(2))}
     if cfg.family == "hybrid":
@@ -560,9 +574,27 @@ def make_caches(cfg: ModelConfig, batch: int, cache_len: int,
     return caches
 
 
+def _slot_axis(tp: TensorParallel | None) -> Axis | None:
+    """The axis the k/v caches' slots are split over, if any."""
+    return tp.model if tp is not None and tp.kv_slots else None
+
+
+def _serve_layer(model: LM, i: int, tp: TensorParallel | None):
+    """Layer ``i``'s block and cross-attention weights (None without an
+    encoder) in their compute form: under ``tp`` gathered over the data
+    axes."""
+    bp = model.blocks.layer(i)
+    cp = model.cross.layer(i) if model.cfg.encoder_layers else None
+    if tp is not None:
+        bp = tp.weights(bp, "blocks")
+        cp = None if cp is None else tp.weights(cp, "cross")
+    return bp, cp
+
+
 @torch.no_grad()
 def prefill(model: LM, tokens, cache_len: int, *, frontend_embeds=None,
-            attention=flash_attention):
+            attention=flash_attention, tp: TensorParallel | None = None,
+            caches: dict | None = None):
     """Run the whole prompt (B, S); return (last-position logits (B, V_pad)
     float32, filled caches).  Each layer first fills its cache from the
     block input — its own K/V projection, k_norm and rope of the normed
@@ -572,80 +604,111 @@ def prefill(model: LM, tokens, cache_len: int, *, frontend_embeds=None,
     ``frontend_embeds`` as for :func:`train_logits`; the audio encoder's
     output is kept as ``caches["enc_out"]``.  ``attention`` is the
     attention core: the kernel's wrapper, or its plain version to check the
-    kernel against."""
+    kernel against.
+
+    ``tp``: the sharded serve step's plan (``serve/serve_step.py``), the
+    parameters the rank's shards and ``tokens`` its batch rows; the logits
+    are then the rank's vocabulary columns.  Where the caches' slots are
+    split over the model axis (the JAX layout), the rank fills its own
+    slots (after the roll on a ring) with k/v of every kv head, from the
+    replicated normed input; where they are split by kv heads, its heads'
+    k/v at every slot.  ``caches``: the zeroed caches to fill (under ``tp``
+    the rank's shards, which the serve step makes from their placements);
+    made here when None."""
     cfg = model.cfg
     b, s = tokens.shape
-    x = embed_tokens(model, tokens)
+    ax = model_axis(tp)
+    table = _weight(model, "embed", tp)
+    x = embed_tokens(model, tokens, table=table, tp=ax)
     if cfg.family == "vlm" and frontend_embeds is not None:
-        x = _prepend_frontend(x, frontend_embeds, model.frontend_proj)
+        x = _prepend_frontend(x, frontend_embeds,
+                              _weight(model, "frontend_proj", tp))
     if cfg.family == "ssm":
-        x, states = _run_xlstm(model, x)
-        return _final_logits(model, x[:, -1:])[:, 0], {"states": states}
-    enc_out = _run_encoder(model, frontend_embeds, attention=attention) \
-        if cfg.encoder_layers else None
-    caches = make_caches(cfg, b, cache_len, x.device)
+        x, states = _run_xlstm(model, x, tp=tp)
+        return _final_logits(model, x[:, -1:], tp, table)[:, 0], {
+            "states": states}
+    enc_out = _run_encoder(model, frontend_embeds, attention=attention,
+                           tp=tp) if cfg.encoder_layers else None
+    if caches is None:
+        caches = make_caches(cfg, b, cache_len, x.device)
     ck, cv = caches["kv"]
     mamba = caches.get("mamba")
-    c = ck.shape[2]
+    c = _cache_slots(cfg, cache_len)
+    seq = _slot_axis(tp)
+    mine = ck.shape[2]                      # the rank's slots
+    first = 0 if seq is None else seq.offset(mine)
+    every = ck.shape[3] == cfg.n_kv_heads   # ... of every kv head
+    if mine * (1 if seq is None else seq.size) != c:
+        raise ValueError(f"a cache of {mine} slots here for {c} in all")
     positions = torch.arange(s, device=x.device)[None, :]
     tail = slice(s - c, s) if s >= c else slice(0, s)
     shift = (s - c) % c if cfg.sliding_window is not None and s >= c else 0
     for i in range(cfg.n_layers):
-        bp = model.blocks.layer(i)
+        bp, cp = _serve_layer(model, i, tp)
         h_in = block_norm(x, bp["norms"], 0, cfg)[:, tail]
-        kh = torch.einsum("bsd,dhk->bshk", h_in, bp["attn"]["wk"])
-        vh = torch.einsum("bsd,dhk->bshk", h_in, bp["attn"]["wv"])
+        pos = positions[:, tail]
+        if shift:
+            h_in, pos = torch.roll(h_in, shift, 1), torch.roll(pos, shift, 1)
+        h_in, pos = h_in[:, first:first + mine], pos[:, first:first + mine]
+        kv_ax = split_axis(ax, bp["attn"]["wk"].shape[-2], cfg.n_kv_heads) \
+            if every else None
+        wk, wv = (gather_from(bp["attn"][w], kv_ax, -2) for w in ("wk", "wv"))
+        kh = torch.einsum("bsd,dhk->bshk", h_in, wk)
+        vh = torch.einsum("bsd,dhk->bshk", h_in, wv)
         if cfg.qk_norm:
             kh = rms_norm(kh, bp["attn"]["k_norm"], cfg.norm_eps)
-        kh = rope(kh, positions[:, tail], cfg.rope_theta)
-        if shift:
-            kh, vh = torch.roll(kh, shift, 1), torch.roll(vh, shift, 1)
+        kh = rope(kh, pos, cfg.rope_theta)
         ck[i, :, :kh.shape[1]] = kh.to(ck.dtype)
         cv[i, :, :vh.shape[1]] = vh.to(cv.dtype)
         x, _, new_m = _dense_block(
             bp, x, cfg, positions=positions, window=_layer_window(cfg, i),
             mamba_state=None if mamba is None else (mamba[0][i],
                                                     mamba[1][i]),
-            enc_out=enc_out,
-            cross_p=model.cross.layer(i) if cfg.encoder_layers else None,
-            attention=attention)
+            enc_out=enc_out, cross_p=cp, attention=attention, tp=ax)
         if new_m is not None:
             mamba[0][i], mamba[1][i] = new_m
     if enc_out is not None:
         caches["enc_out"] = enc_out
-    return _final_logits(model, x[:, -1:])[:, 0], caches
+    return _final_logits(model, x[:, -1:], tp, table)[:, 0], caches
 
 
 @torch.no_grad()
 def decode_step(model: LM, token, caches: dict, index: int, *,
-                enc_out=None, attention=flash_attention):
+                enc_out=None, attention=flash_attention,
+                tp: TensorParallel | None = None):
     """One decode step: token (B, 1) at absolute position ``index``.  Its
     k/v go to slot ``index`` (on a ring, ``index % C``) and it attends to
     the slots written so far, 0..index (on a ring, 0..min(index, C - 1):
     every slot once the ring has wrapped), with no window.  ``enc_out``:
     the audio encoder's output (``caches["enc_out"]`` after prefill).
     Returns (logits (B, V_pad) float32, caches), the caches updated in
-    place (an ssm config's states are new tensors)."""
+    place (an ssm config's states are new tensors).  ``tp``: as for
+    :func:`prefill`, the caches the rank's shards (split along their slots,
+    they are attended by slices); ``index`` is a position in the whole
+    cache."""
     cfg = model.cfg
-    x = embed_tokens(model, token)
+    ax = model_axis(tp)
+    table = _weight(model, "embed", tp)
+    x = embed_tokens(model, token, table=table, tp=ax)
     if cfg.family == "ssm":
-        x, states = _run_xlstm(model, x, caches["states"])
-        return _final_logits(model, x)[:, 0], {"states": states}
+        x, states = _run_xlstm(model, x, caches["states"], tp=tp)
+        return _final_logits(model, x, tp, table)[:, 0], {"states": states}
     positions = torch.full((1, 1), index, device=x.device)
     ck, cv = caches["kv"]
     mamba = caches.get("mamba")
-    c = ck.shape[2]
+    seq = _slot_axis(tp)
+    c = ck.shape[2] * (1 if seq is None else seq.size)
     slot, q_offset = (index, index) if cfg.sliding_window is None \
         else (index % c, min(index, c - 1))
     for i in range(cfg.n_layers):
+        bp, cp = _serve_layer(model, i, tp)
         x, _, new_m = _dense_block(
-            model.blocks.layer(i), x, cfg, positions=positions,
-            q_offset=q_offset, kv_cache=(ck[i], cv[i]), cache_index=slot,
+            bp, x, cfg, positions=positions, q_offset=q_offset,
+            kv_cache=(ck[i], cv[i]), cache_index=slot,
             mamba_state=None if mamba is None else (mamba[0][i],
                                                     mamba[1][i]),
-            single_step=True, enc_out=enc_out,
-            cross_p=model.cross.layer(i) if cfg.encoder_layers else None,
-            attention=attention)
+            single_step=True, enc_out=enc_out, cross_p=cp,
+            attention=attention, tp=ax, seq=seq)
         if new_m is not None:
             mamba[0][i], mamba[1][i] = new_m
-    return _final_logits(model, x)[:, 0], caches
+    return _final_logits(model, x, tp, table)[:, 0], caches

@@ -7,12 +7,35 @@ time recurrences are Python loops over the sequence, one step a position,
 where the JAX package runs ``jax.lax.scan``; the JAX package has no Pallas
 kernel for them, so they run as plain PyTorch on any device.  The states
 are float32 whatever the parameter dtype.
+
+Under the sharded steps each block takes ``tp``, the mesh's model axis,
+and splits where its placements do (``split_axis``: an axis splits the
+dimensions it divides), as the JAX package's logical axes put them:
+- mamba's channels (``mlp``): the rank owns channels [r d/M, (r+1) d/M) of
+  u, z, the conv, ``a_log``, ``d_skip``, the state and the conv tail.
+  ``in_proj``'s contiguous split of its 2d columns leaves a rank all-u or
+  all-z columns, so it is gathered over the axis and the rank's u and z
+  columns sliced from it (:func:`gather_shared`, whose backward
+  reduce-scatters); ``x_proj``'s rows are the rank's channels, so its
+  (B, S, 2N + 1) product is a partial sum, summed over the axis and read
+  back by the rank's channels (``copy_to``), and ``out_proj`` is
+  row-split;
+- the mLSTM's heads: ``wqkv``, ``wgates`` and the (C, n, m) states local
+  by heads, ``wo`` row-split;
+- the sLSTM's columns: ``wx``, ``wr`` and (c, n, h, m) local by columns;
+  each step all-gathers the full h for the ``wr`` product, and the output
+  (B, S, d / M) is all-gathered into the replicated residual.
+A block whose dimension the axis does not divide (xlstm-350m's 4 mLSTM
+heads on a 16-way axis) keeps it whole and computes replicated.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from repro_torch.parallel.tensor_parallel import (Axis, copy_to, gather_from,
+                                                  gather_shared, reduce_from,
+                                                  scatter_to, split_axis)
 from .config import ModelConfig
 from .layers import _dense_init, _param
 
@@ -65,13 +88,33 @@ def _mamba_scan(u, delta, a, bmat, cmat, d_skip, h0):
     return y + u * d_skip, h
 
 
+def _mamba_weights(p: dict, d: int, tp: Axis | None):
+    """The channel axis (``tp`` where it splits the channels, else None)
+    and the compute forms of ``in_proj`` (d, 2 d_local: the rank's u then
+    z columns) and ``x_proj`` (d_local, 2N + 1: the rank's channel rows)."""
+    w_in, x_proj = p["in_proj"], p["x_proj"]
+    ax = split_axis(tp, p["conv_w"].shape[-1], d)
+    in_ax = split_axis(tp, w_in.shape[-1], 2 * d)
+    if ax is None:          # whole channels: in_proj whole, compute replicated
+        return None, gather_from(w_in, in_ax, -1), x_proj
+    w_in = gather_shared(w_in, in_ax, -1)
+    n, lo = d // ax.size, ax.offset(d // ax.size)
+    return ax, torch.cat([w_in[:, lo:lo + n], w_in[:, d + lo:d + lo + n]],
+                         dim=-1), scatter_to(x_proj, ax, 0)
+
+
 def apply_mamba(p: dict, x, cfg: ModelConfig, *, state=None,
-                conv_state=None, single_step: bool = False):
+                conv_state=None, single_step: bool = False,
+                tp: Axis | None = None):
     """x (B, S, d).  Returns (y, (ssm_state, conv_state)); state (B, d, N)
-    float32, conv_state (B, K - 1, d) the conv's tail in x's dtype."""
-    b, s, d = x.shape
+    float32, conv_state (B, K - 1, d) the conv's tail in x's dtype.
+    ``tp``: the model axis; ``p`` then holds the rank's channels (the
+    module docstring), and so do the state and the conv tail."""
+    b, s, _ = x.shape
     n = cfg.ssm_state
-    xz = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    ax, w_in, x_proj = _mamba_weights(p, x.shape[-1], tp)
+    d = w_in.shape[-1] // 2                           # the rank's channels
+    xz = torch.einsum("bsd,de->bse", copy_to(x, ax), w_in)
     u, z = xz[..., :d], xz[..., d:]
 
     kconv = cfg.ssm_conv
@@ -85,7 +128,10 @@ def apply_mamba(p: dict, x, cfg: ModelConfig, *, state=None,
     u = nn.functional.silu(u.float()).to(x.dtype)
     new_conv_state = upad[:, -(kconv - 1):] if kconv > 1 else conv_state
 
-    proj = torch.einsum("bsd,de->bse", u, p["x_proj"]).float()
+    # a partial sum over the channels, summed, then read by each rank's own
+    # channels (its gradient summed over them)
+    proj = copy_to(reduce_from(torch.einsum("bsd,de->bse", u, x_proj)
+                               .float(), ax), ax)
     bmat, cmat, dt_raw = proj[..., :n], proj[..., n:2 * n], proj[..., 2 * n:]
     delta = torch.logaddexp(dt_raw, torch.zeros_like(dt_raw))   # softplus
     delta = delta.expand(b, s, d)
@@ -105,8 +151,8 @@ def apply_mamba(p: dict, x, cfg: ModelConfig, *, state=None,
         y, state = _mamba_scan(u.float(), delta, a, bmat, cmat, p["d_skip"],
                                state)
     y = y.to(x.dtype) * nn.functional.silu(z.float()).to(x.dtype)
-    return torch.einsum("bsd,de->bse", y, p["out_proj"]), (state,
-                                                            new_conv_state)
+    out = reduce_from(torch.einsum("bsd,de->bse", y, p["out_proj"]), ax)
+    return out, (state, new_conv_state)
 
 
 # ================================================================== mLSTM
@@ -129,21 +175,29 @@ class Mlstm(nn.Module):
             _dense_init(w, self.cfg.d_model, gen)
 
 
-def mlstm_state(lead: tuple, b: int, cfg: ModelConfig, device=None):
+def mlstm_state(lead: tuple, b: int, cfg: ModelConfig, device=None,
+                heads: int | None = None):
     """Zeroed mLSTM state (C, n, m) of ``lead`` + (B, H, hd, hd),
-    (B, H, hd), (B, H), the stabiliser m at NEG_INF."""
-    h = cfg.mlstm_heads
-    hd = cfg.d_model // h
+    (B, H, hd), (B, H), the stabiliser m at NEG_INF; H is ``heads`` (a
+    rank's local heads) or the config's."""
+    h = heads or cfg.mlstm_heads
+    hd = cfg.d_model // cfg.mlstm_heads
     f32 = dict(dtype=torch.float32, device=device)
     return (torch.zeros(lead + (b, h, hd, hd), **f32),
             torch.zeros(lead + (b, h, hd), **f32),
             torch.full(lead + (b, h), NEG_INF, **f32))
 
 
-def apply_mlstm(p: dict, x, cfg: ModelConfig, *, state=None):
+def apply_mlstm(p: dict, x, cfg: ModelConfig, *, state=None,
+                tp: Axis | None = None):
     """Stabilised mLSTM over x (B, S, d); state (C, n, m) as
-    :func:`mlstm_state` without ``lead``.  Returns (out, state)."""
+    :func:`mlstm_state` without ``lead``.  Returns (out, state).  ``tp``:
+    the model axis; ``p`` and the state then hold the rank's heads where
+    the axis splits them."""
     b, s, d = x.shape
+    h = p["wqkv"].shape[-2]
+    ax = split_axis(tp, h, cfg.mlstm_heads)
+    x = copy_to(x, ax)
     hd = d // cfg.mlstm_heads
     qkv = torch.einsum("bsd,dthk->btshk", x, p["wqkv"])  # (B, 3, S, H, hd)
     q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
@@ -153,7 +207,7 @@ def apply_mlstm(p: dict, x, cfg: ModelConfig, *, state=None):
     q, k, v = q.float(), k.float(), v.float()
 
     if state is None:
-        state = mlstm_state((), b, cfg, x.device)
+        state = mlstm_state((), b, cfg, x.device, heads=h)
     c_mem, n, m = state
     hs = []
     for t in range(s):
@@ -170,7 +224,8 @@ def apply_mlstm(p: dict, x, cfg: ModelConfig, *, state=None):
         hs.append(torch.einsum("bhvk,bhk->bhv", c_mem, qt) / denom)
         m = m_new
     out = torch.stack(hs, dim=1).to(x.dtype)          # (B, S, H, hd)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), (c_mem, n, m)
+    return reduce_from(torch.einsum("bshk,hkd->bsd", out, p["wo"]), ax), (
+        c_mem, n, m)
 
 
 # ================================================================== sLSTM
@@ -191,27 +246,35 @@ class Slstm(nn.Module):
             _dense_init(w, self.cfg.d_model, gen)
 
 
-def slstm_state(lead: tuple, b: int, cfg: ModelConfig, device=None):
+def slstm_state(lead: tuple, b: int, cfg: ModelConfig, device=None,
+                width: int | None = None):
     """Zeroed sLSTM state (c, n, h, m), each ``lead`` + (B, d) float32, the
-    stabiliser m at NEG_INF."""
-    shape = lead + (b, cfg.d_model)
+    stabiliser m at NEG_INF; d is ``width`` (a rank's local columns) or
+    the config's."""
+    shape = lead + (b, width or cfg.d_model)
     z = torch.zeros(shape, dtype=torch.float32, device=device)
     return (z, z.clone(), z.clone(),
             torch.full(shape, NEG_INF, dtype=torch.float32, device=device))
 
 
-def apply_slstm(p: dict, x, cfg: ModelConfig, *, state=None):
+def apply_slstm(p: dict, x, cfg: ModelConfig, *, state=None,
+                tp: Axis | None = None):
     """sLSTM with an exponential input gate and a normaliser state over
     x (B, S, d); sequential by construction (the recurrent weight wr).
-    Returns (out, state)."""
+    Returns (out, state).  ``tp``: the model axis; ``p`` and the state
+    then hold the rank's columns where the axis splits d, and each step
+    reads the full h, all-gathered."""
     b, s, d = x.shape
-    gx = torch.einsum("bsd,dge->bsge", x.float(), p["wx"])
+    width = p["wx"].shape[-1]
+    ax = split_axis(tp, width, d)
+    gx = torch.einsum("bsd,dge->bsge", copy_to(x.float(), ax), p["wx"])
     if state is None:
-        state = slstm_state((), b, cfg, x.device)
+        state = slstm_state((), b, cfg, x.device, width=width)
     c, n, h, m = state
     hs = []
     for t in range(s):
-        g = gx[:, t] + torch.einsum("bd,dge->bge", h, p["wr"])   # (B, 4, d)
+        h_all = copy_to(gather_from(h, ax, -1), ax)
+        g = gx[:, t] + torch.einsum("bd,dge->bge", h_all, p["wr"])  # (B,4,d)
         i_log, f_raw, z_raw, o_raw = g[:, 0], g[:, 1], g[:, 2], g[:, 3]
         f_log = nn.functional.logsigmoid(f_raw)
         m_new = torch.maximum(f_log + m, i_log)
@@ -222,4 +285,5 @@ def apply_slstm(p: dict, x, cfg: ModelConfig, *, state=None):
         h = torch.sigmoid(o_raw) * c / torch.clamp(n, min=1.0)
         m = m_new
         hs.append(h)
-    return torch.stack(hs, dim=1).to(x.dtype), (c, n, h, m)
+    out = gather_from(torch.stack(hs, dim=1), ax, -1)
+    return out.to(x.dtype), (c, n, h, m)

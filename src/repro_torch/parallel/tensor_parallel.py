@@ -31,8 +31,16 @@ shares) is such a replicated tensor too.
 
 :func:`fsdp_gather` all-gathers a weight's FSDP split over one data axis
 just before use; its backward reduce-scatters the weight's gradient there,
-which sums it over the data-parallel ranks.  Every function is the
-identity when its axis is ``None``: the one-device step runs the same
+which sums it over the data-parallel ranks.  :func:`gather_shared` is the
+same pair over the model axis, for a split weight of which each rank reads
+columns that other ranks store (mamba's ``in_proj``).
+
+The serve step adds two forward-only combinations:
+:func:`merge_split_attention` merges the ranks' partial attentions over
+their slices of a cache split along the sequence, by the kernel's
+log-sum-exps, and :func:`argmax_split` takes a greedy token over a
+vocabulary split over the model axis.  Every function is the identity (or
+the plain op) when its axis is ``None``: the one-device step runs the same
 code.  The collectives are the functional ones
 (``torch.ops._c10d_functional``), the same calls on gloo, NCCL and the
 ``fake`` process group, each followed by its ``wait_tensor``.
@@ -154,7 +162,7 @@ class _ScatterTo(torch.autograd.Function):
         return all_gather(grad, ctx.axis, ctx.dim), None, None
 
 
-class _FsdpGather(torch.autograd.Function):
+class _GatherSummed(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis, dim):
         ctx.axis, ctx.dim = axis, dim
@@ -193,55 +201,114 @@ def fsdp_gather(x, axis: Axis, dim: int):
     """A weight's FSDP split along ``dim`` all-gathered over data axis
     ``axis``; the backward reduce-scatters the gradient (sums it over the
     axis' ranks and keeps this rank's slice)."""
-    return _FsdpGather.apply(x, axis, dim)
+    return _GatherSummed.apply(x, axis, dim)
+
+
+def gather_shared(x, axis: Axis | None, dim: int):
+    """A weight split along ``dim`` over the model axis ``axis``, of which
+    this rank reads slices other ranks store, all-gathered whole; the
+    backward sums the gradient over the axis and keeps this rank's stored
+    slice (a reduce-scatter), since other ranks' partials reach the stored
+    columns.  (:func:`gather_from`'s backward would keep only this rank's
+    own partial.)"""
+    return x if axis is None else _GatherSummed.apply(x, axis, dim)
+
+
+def split_attention_weight(lse, lses):
+    """The weight of a partial attention whose rows' log-sum-exps are
+    ``lse`` (B, Sq, H) among all the partials' ``lses`` (M, B, Sq, H) over
+    disjoint slices of the keys: exp(lse - M) / sum_r exp(lses_r - M), M
+    the largest of ``lses``.  The weighted partial outputs sum to the
+    attention over all the keys; a slice that shows a row no key
+    (``NEG_INF``) weighs 0 there."""
+    top = lses.amax(0)
+    return torch.exp(lse - top) / torch.exp(lses - top).sum(0)
+
+
+def merge_split_attention(out, lse, seq: Axis | None,
+                          heads: Axis | None = None):
+    """Attention over keys split along ``seq``, merged from each rank's
+    partial: ``out`` (B, Sq, H, hd) this rank's attention of every q head
+    to its slice of the keys (0 for a row that sees none of them), ``lse``
+    (B, Sq, H) float32 the rows' log-sum-exps there (``NEG_INF`` for such
+    a row).  Each rank's output is weighted by exp(lse_r - M) over the sum
+    of those weights (M the largest lse_r) and summed over ``seq``:
+    reduce-scattered to this rank's q heads of ``heads`` (the heads split
+    over the same axis), or all-reduced where the heads are whole
+    (``heads`` None).  The identity when ``seq`` is None."""
+    if seq is None:
+        return out
+    w = split_attention_weight(lse, all_gather(lse[None], seq, 0))
+    part = out.float() * w[..., None]
+    part = all_reduce(part, seq) if heads is None \
+        else reduce_scatter(part, heads, 2)
+    return part.to(out.dtype)
+
+
+def argmax_split(logits, axis: Axis | None):
+    """The index along the last dimension of the largest entry of logits
+    whose columns are split over ``axis`` (this rank holds its own, the
+    first at ``axis.offset``): each rank's (max, index) combined over the
+    axis, ties to the lower index as ``torch.argmax`` and ``jnp.argmax``.
+    The same on every rank of the axis; ``torch.argmax`` when ``axis`` is
+    None."""
+    idx = torch.argmax(logits, dim=-1)
+    if axis is None:
+        return idx
+    val = logits.gather(-1, idx[..., None])[..., 0]
+    vals = all_gather(val[None], axis, 0)
+    idxs = all_gather((idx + axis.offset(logits.shape[-1]))[None], axis, 0)
+    return torch.where(vals == vals.amax(0), idxs,
+                       torch.iinfo(idxs.dtype).max).amin(0)
 
 
 @dataclasses.dataclass(frozen=True)
 class TensorParallel:
     """One rank's plan of the sharded step over a ``(pod,) data, model``
-    mesh: the model axis that the layers split over, and per parameter
-    (keyed by its dotted name) the gathers that give its compute form.
+    mesh: the model axis that the layers split over, per parameter (keyed
+    by its dotted name) the gathers that give its compute form, and for the
+    serve step whether the k/v caches' slots are split over the model axis.
 
     ``gathers[name]`` is a tuple of ``(axis, dim)``: the data axes whose
     FSDP split of the parameter is all-gathered before use (the inner axis
-    first, so ``(pod, data)`` splits gather data then pod) and, for a
-    parameter of a module that computes replicated (``whole``), its model
-    axis split too (:func:`gather_from`).  ``unsplit[name]`` lists the
-    data axes a parameter is whole on, whose gradient is summed over them
-    after the backward (an FSDP split's is summed by its reduce-scatter)."""
+    first, so ``(pod, data)`` splits gather data then pod).  Every model
+    split stays: each layer computes on its own slice.  ``unsplit[name]``
+    lists the data axes a parameter is whole on, whose gradient is summed
+    over them after the backward (an FSDP split's is summed by its
+    reduce-scatter).  ``kv_slots``: the (L, B, C, Hkv, hd) caches are split
+    along C (``kv_seq``, the JAX layout wherever the axis divides C); else
+    they are split by kv heads or whole."""
     model: Axis
     gathers: dict
     unsplit: dict
+    kv_slots: bool = False
 
     @classmethod
-    def of(cls, mesh, placements: dict, whole=()) -> "TensorParallel":
+    def of(cls, mesh, placements: dict,
+           caches: dict | None = None) -> "TensorParallel":
         """The plan from ``placements`` (dotted name -> a DTensor's
-        placements); parameters whose names start with a prefix in
-        ``whole`` are gathered over the model axis too."""
+        placements) and, for the serve step, the caches' placements tree
+        (``launch.specs.cache_shardings``)."""
         names = mesh.mesh_dim_names
         data = tuple(a for a in ("pod", "data") if a in names)
         axes = {a: Axis.of(mesh, a) for a in data + ("model",)}
         gathers, unsplit = {}, {}
         for name, pl in placements.items():
             on = dict(zip(names, pl))
-            g = [(axes[a], on[a].dim) for a in reversed(data)
-                 if isinstance(on[a], Shard)]
-            if any(name.startswith(p) for p in whole) \
-                    and isinstance(on["model"], Shard):
-                g.append((None, on["model"].dim))
-            gathers[name] = tuple(g)
+            gathers[name] = tuple((axes[a], on[a].dim) for a in reversed(data)
+                                  if isinstance(on[a], Shard))
             unsplit[name] = tuple(axes[a] for a in data
                                   if not isinstance(on[a], Shard))
-        return cls(axes["model"], gathers, unsplit)
+        kv = (caches or {}).get("kv")
+        kv_slots = kv is not None and \
+            dict(zip(names, kv[0]))["model"] == Shard(2)
+        return cls(axes["model"], gathers, unsplit, kv_slots)
 
     def weight(self, name: str, t, lead: int = 0):
         """Parameter ``name``'s compute form from its local shard ``t``
         (with ``lead`` leading stacking dimensions already indexed away)."""
         for axis, dim in self.gathers[name]:
-            if axis is None:
-                t = gather_from(t, self.model, dim - lead)
-            else:
-                t = fsdp_gather(t, axis, dim - lead)
+            t = fsdp_gather(t, axis, dim - lead)
         return t
 
     def weights(self, tree: dict, prefix: str, lead: int = 1) -> dict:

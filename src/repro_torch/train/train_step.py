@@ -13,9 +13,10 @@ package's sharded program (its GSPMD step under
   rank of the ``model`` axis;
 - each layer's weights are all-gathered over the data axes just before
   use (FSDP) and keep their split over ``model``, so every model-axis rank
-  computes its own heads, MLP columns, experts and vocabulary rows, with
-  one all-reduce over ``model`` after each row-parallel product
-  (``parallel/tensor_parallel.py``);
+  computes its own heads, MLP columns, experts, mamba channels, xLSTM
+  heads and columns and vocabulary rows, with one all-reduce over
+  ``model`` after each row-parallel product (``parallel/tensor_parallel.py``,
+  ``models/ssm.py``);
 - the loss is a vocabulary-parallel cross entropy: each rank's
   log-sum-exp and the label's logit combined over ``model`` as (B, S)
   tensors, the full logits never gathered;
@@ -39,7 +40,7 @@ from torch.distributed.tensor import DTensor
 from repro_torch.convert import nest, param_tree
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import train_logits, whole_modules
+from repro_torch.models.model import train_logits
 from repro_torch.parallel.tensor_parallel import (Axis, TensorParallel,
                                                   all_reduce, split_axis)
 from .optimizer import AdamWConfig, adamw_update
@@ -205,8 +206,7 @@ def _sharded_grads(model, batch, mesh, microbatches, attention):
     placements, from the tensor-parallel program on this rank's shards
     (the module docstring)."""
     params = dict(model.named_parameters())
-    tp = TensorParallel.of(mesh, {n: p.placements for n, p in params.items()},
-                           whole=whole_modules(model.cfg))
+    tp = TensorParallel.of(mesh, {n: p.placements for n, p in params.items()})
     tokens, labels, fe = (
         batch[k].to_local() if isinstance(batch.get(k), DTensor)
         else batch.get(k) for k in ("tokens", "labels", "frontend"))

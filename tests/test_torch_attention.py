@@ -162,3 +162,66 @@ def test_kernel_takes_every_attention_head_dim(arch, reduced):
     repo never reaches the wrapper's refusal."""
     cfg = reduced_config(ARCHS[arch]) if reduced else ARCHS[arch]
     assert cfg.head_dim in HEAD_DIMS
+
+
+# ----------------------------------- the log-sum-exp and the split merge
+
+def _masked_logits64(q, k, keep, scale):
+    """float64 scaled logits (B, H, Sq, Sk), -inf where masked."""
+    group = q.shape[2] // k.shape[2]
+    kx = k.double().repeat_interleave(group, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), kx) * scale
+    return torch.where(keep, s, -torch.inf)
+
+
+@pytest.mark.parametrize("sq,sk,kw", [
+    (1, 40, dict(causal=True, q_offset=17)),
+    (1, 40, dict(causal=True, q_offset=-3)),          # sees no key
+    (6, 24, dict(causal=True, window=5, q_offset=10)),
+    (8, 8, dict(causal=True, q_offset=-4)),           # the first rows none
+    (5, 12, dict(causal=False)),
+])
+def test_attention_ref_lse_is_the_float64_logsumexp(sq, sk, kw):
+    """``attention_ref``'s log-sum-exp (the kernel's second output on the
+    CPU) equals a float64 ``logsumexp`` of the scaled, masked logits at
+    1e-6; a row that sees no key gives NEG_INF and output 0; the output is
+    the one without ``return_lse``."""
+    from repro_torch.kernels.flash_attention.ref import NEG_INF
+    q, k, v = (torch.from_numpy(a) for a in _inputs(2, sq, sk, 4, 2, 32, 9))
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    assert lse.shape == (2, sq, 4) and lse.dtype == torch.float32
+    torch.testing.assert_close(out, flash_attention(q, k, v, **kw),
+                               rtol=0, atol=0)
+    row = kw.get("q_offset", sk - sq) + torch.arange(sq)[:, None]
+    col = torch.arange(sk)[None, :]
+    keep = col <= row if kw["causal"] else torch.ones(sq, sk, dtype=bool)
+    if kw.get("window"):
+        keep &= col > row - kw["window"]
+    want = torch.logsumexp(_masked_logits64(q, k, keep, 32 ** -0.5),
+                           dim=-1).transpose(1, 2)
+    seen = keep.any(dim=-1)
+    assert (lse[:, ~seen] == NEG_INF).all() and not out[:, ~seen].any()
+    np.testing.assert_allclose(lse[:, seen].numpy(),
+                               want[:, seen].numpy(), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("q_offset,window", [(13, None), (31, None),
+                                             (2, None), (20, 6)])
+def test_split_merge_equals_the_whole_attention(q_offset, window):
+    """Attention over a 32-slot cache split into M = 4 slices of 8, each
+    attended with its own ``q_offset - first slot`` (slices past the query
+    see no key, and with a window the first do not either), merged by
+    ``split_attention_weight``: the whole attention's output at 1e-6 in
+    float32."""
+    from repro_torch.parallel.tensor_parallel import split_attention_weight
+    q, k, v = (torch.from_numpy(a) for a in _inputs(2, 1, 32, 8, 2, 32, 4))
+    kw = dict(causal=True, window=window)
+    whole = flash_attention(q, k, v, q_offset=q_offset, **kw)
+    parts = [flash_attention(q, k[:, f:f + 8], v[:, f:f + 8],
+                             q_offset=q_offset - f, return_lse=True, **kw)
+             for f in range(0, 32, 8)]
+    lses = torch.stack([lse for _, lse in parts])
+    assert (lses[-1] < -1e29).all() or q_offset >= 24
+    merged = sum(out * split_attention_weight(lse, lses)[..., None]
+                 for out, lse in parts)
+    torch.testing.assert_close(merged, whole, rtol=1e-6, atol=1e-6)

@@ -1613,3 +1613,84 @@ def test_reduced_mixtral_resume_is_bitwise_on_card(tmp_path, monkeypatch):
     assert again.resumed_from == 2
     assert again.losses == straight.losses[2:]
     assert all(np.isfinite(straight.losses))
+
+
+# -------------------------------------- slice 13: the sharded serve step
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,shape,kw", [
+    # the serve path's decode, split in the block over its 4 key steps
+    (torch.bfloat16, (1, 1, 128, 32, 8, 128), dict(causal=True, q_offset=16)),
+    # one key step: the warp writes from registers
+    (torch.bfloat16, (1, 1, 20, 4, 2, 64), dict(causal=True, q_offset=19)),
+    (torch.float32, (2, 1, 16, 4, 2, 32), dict(causal=True, q_offset=9)),
+    # hymba's ring decode, 5 kv heads of group 5
+    (torch.bfloat16, (1, 1, 1024, 25, 5, 64), dict(causal=True, q_offset=300)),
+    (torch.float32, (1, 1, 1024, 25, 5, 64), dict(causal=True,
+                                                   q_offset=1023)),
+    # rank 0 of qwen3-4b decode_32k on 16 x 16: its 2,048-slot slice, all
+    # seen, half seen, none seen
+    (torch.bfloat16, (8, 1, 2048, 32, 8, 128), dict(causal=True,
+                                                     q_offset=32767)),
+    (torch.bfloat16, (8, 1, 2048, 32, 8, 128), dict(causal=True,
+                                                     q_offset=1023)),
+    (torch.bfloat16, (8, 1, 2048, 32, 8, 128), dict(causal=True,
+                                                     q_offset=-1)),
+    # many rows: row tiles of 64 with one split, and a window
+    (torch.bfloat16, (4, 256, 256, 16, 16, 128), dict(causal=True)),
+    (torch.float32, (2, 64, 64, 4, 2, 64), dict(causal=True, window=16)),
+])
+def test_kernel_log_sum_exp_matches_plain(dtype, shape, kw):
+    """``flash_attention(return_lse=True)`` on the card: one launch, the
+    output bit for bit the launch without the log-sum-exp and within the
+    file's tolerance of ``attention_ref``, the log-sum-exp within 1e-5
+    (absolute and relative) of ``attention_ref``'s, NEG_INF (-1e30) exactly
+    for a row that sees no key."""
+    dev = _cuda_or_skip()
+    b, sq, sk, h, hkv, d = shape
+    g = torch.Generator(device=dev).manual_seed(sk + h)
+    q = torch.randn(b, sq, h, d, device=dev, generator=g).to(dtype)
+    k, v = (torch.randn(b, sk, hkv, d, device=dev, generator=g).to(dtype)
+            for _ in range(2))
+    before = native.LAUNCHES["flash_attention"]
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["flash_attention"] == before + 1
+    assert lse.shape == (b, sq, h) and lse.dtype == torch.float32
+    assert torch.equal(out, flash_attention(q, k, v, **kw))
+    p_out, p_lse = attention_ref(q, k, v, return_lse=True, **kw)
+    tol = 2e-6 if dtype == torch.float32 else 2e-2
+    assert float((out.float() - p_out.float()).abs().max()) < tol
+    empty = p_lse <= -1e29
+    assert torch.equal(lse[empty], p_lse[empty])
+    assert ((lse - p_lse).abs() <= 1e-5 + 1e-5 * p_lse.abs()).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-4b", "hymba-1.5b", "xlstm-350m"])
+def test_sharded_decode_cell_of_a_fake_world_traced_equals_its_run(arch):
+    """Rank 0 of a (2, 2) ``fake`` world: a reduced decode cell's sharded
+    step (``dryrun.build_step``, caches in the JAX layout) traced on meta
+    tensors and run on the card under the same counter: every count and
+    the peak equal, the kernel launched once a layer (none for xlstm)."""
+    dev = _cuda_or_skip()
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.launch.dryrun import build_step, fake_world
+    from repro_torch.launch.trace_analysis import count
+    from repro_torch.models.config import InputShape
+    cfg = reduced_config(get_config(arch))
+    shape = InputShape("t", "decode", 32, 4)
+    with fake_world(4):
+        mesh = DeviceMesh("cuda", torch.arange(4).view(2, 2),
+                          mesh_dim_names=("data", "model"))
+        cell = build_step(cfg, shape, mesh)
+        _, traced = count(cell.step, *cell.inputs, device_type="meta")
+        cell = build_step(cfg, shape, mesh, device=dev)
+        native.reset_launches()
+        _, ran = count(cell.step, *cell.inputs, device_type="cuda")
+        torch.cuda.synchronize()
+    assert ran.key() == traced.key()
+    assert ran.peak_bytes == traced.peak_bytes
+    assert native.LAUNCHES["flash_attention"] == (
+        0 if cfg.family == "ssm" else cfg.n_layers)
+    assert traced.collective_bytes["all-gather"] > 0

@@ -448,6 +448,38 @@ def test_attention_op_flops_equal_the_closed_form(sq, sk, kw):
     assert (pairs, seen) == (int(keep.sum()), int(keep.any(0).sum()))
 
 
+def test_the_log_sum_exp_op_counts_as_the_attention_op():
+    """``flash_attention(return_lse=True)`` on meta tensors is the op
+    ``repro_torch::flash_attention_lse_fwd``: the same FLOPs as the op
+    without it, a (B, Sq, H) float32 second output from its fake
+    implementation, and no launch."""
+    q = torch.empty((2, 1, 8, 32), device=META, dtype=torch.bfloat16)
+    k = torch.empty((2, 40, 2, 32), device=META, dtype=torch.bfloat16)
+    native.reset_launches()
+    _, plain = count(lambda: flash_attention(q, k, k, q_offset=30),
+                     device_type="meta")
+    (out, lse), c = count(lambda: flash_attention(q, k, k, q_offset=30,
+                                                  return_lse=True),
+                          device_type="meta")
+    assert c.dot_flops == plain.dot_flops == 4 * 2 * 8 * 32 * 31
+    assert out.shape == q.shape and lse.shape == (2, 1, 8)
+    assert lse.dtype == torch.float32
+    assert c.result_bytes == plain.result_bytes + lse.numel() * 4
+    assert native.LAUNCHES["flash_attention"] == 0
+
+
+def test_counter_leaves_out_the_log_sigmoid_scratch_buffer():
+    """``log_sigmoid_forward``'s second output is a scratch buffer that the
+    card's kernel leaves empty while meta and the CPU give it the input's
+    size (the xLSTM gates): the counter counts the first output only, so a
+    meta trace counts what the card runs."""
+    x = torch.randn(4, 16)
+    for device in ("cpu", "meta"):
+        _, c = count(torch.nn.functional.logsigmoid, x.to(device),
+                     device_type=device)
+        assert (c.n_ops, c.result_bytes, c.bytes_accessed) == (1, 256, 512)
+
+
 def _reduced(arch="olmo-1b", **kw):
     return dataclasses.replace(configs.reduced_config(configs.ARCHS[arch]),
                                **kw)

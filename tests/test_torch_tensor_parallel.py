@@ -183,9 +183,12 @@ RANK_SCRIPT = textwrap.dedent("""
     mm._final_logits = record("logits", mm._final_logits,
                               lambda r, *a: list(r.shape))
     mm.apply_mamba = record("mamba", mm.apply_mamba, lambda r, p, *a, **kw:
-                            list(p["in_proj"].shape))
+                            [list(p["in_proj"].shape),
+                             list(p["conv_w"].shape)])
     mm.apply_mlstm = record("mlstm", mm.apply_mlstm, lambda r, p, *a, **kw:
                             list(p["wqkv"].shape))
+    mm.apply_slstm = record("slstm", mm.apply_slstm, lambda r, p, *a, **kw:
+                            list(p["wx"].shape))
 
     def cfg_of(arch):
         return dataclasses.replace(
@@ -432,26 +435,31 @@ def test_each_rank_computes_its_own_slice(runs, arch, mesh):
     shapes: batch rows over data; q heads, MLP columns, router columns and
     experts (or expert columns), vocabulary rows over model; kv heads
     split where they divide the model axis, else the one kv head that the
-    rank's q heads read; hymba's mamba heads and the xLSTM blocks whole."""
+    rank's q heads read; hymba's mamba channels (``in_proj``'s 2d columns
+    and the conv's d) and xlstm's sLSTM columns split, and its 2 mLSTM
+    heads where they divide the axis (2 x 2), else whole (1 x 4)."""
     cfg = _cfg(arch)
     n_data, n_model = MESHES[mesh]
     b = BATCH // n_data
     h = cfg.padded_heads // n_model
     kv = cfg.n_kv_heads // n_model if cfg.n_kv_heads % n_model == 0 else 1
-    with np.load(runs["dir"] / f"weights_{arch}.npz") as z:
-        whole = {k: list(z[k].shape) for k in z.files}
     for r in runs[mesh]:
         local = r["local"][arch]
         assert local["logits"] == [b, SEQ, cfg.padded_vocab // n_model]
+        d = cfg.d_model
         if cfg.family == "ssm":
-            # the xLSTM blocks gathered whole and run replicated
-            assert local.keys() == {"logits", "mlstm"}, local
-            assert local["mlstm"] == whole["blocks.mlstm.wqkv"][2:]
+            assert local.keys() == {"logits", "mlstm", "slstm"}, local
+            heads = cfg.mlstm_heads
+            if heads % n_model == 0:
+                heads //= n_model
+            assert local["mlstm"] == [d, 3, heads, d // cfg.mlstm_heads]
+            assert local["slstm"] == [d, 4, d // n_model]
             continue
         q, k = local["attn"]
         assert (q[0], q[2], k[2]) == (b, h, kv), local
-        if cfg.family == "hybrid":      # the mamba heads gathered whole
-            assert local["mamba"] == whole["blocks.mamba.in_proj"][1:]
+        if cfg.family == "hybrid":      # the rank's mamba channels
+            assert local["mamba"] == [[d, 2 * d // n_model],
+                                      [cfg.ssm_conv, d // n_model]]
         if cfg.is_moe:
             router, w_gate = local["moe"]
             assert router == [cfg.d_model, cfg.n_experts // n_model]
