@@ -197,11 +197,22 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    then timed against the compute and memory terms; values not checked.
    Phase 2 also holds the kernel's log-sum-exp output against the plain
    version's at the decode shapes of these ranks.
-12. One JSON line of the kernels, their launches and times.
-13. The card's ``nvidia-smi`` name and power limit, then the last line:
+12. The compressed training step on a pod mesh
+   (``parallel/compression.py``: each pod's tensor-parallel gradient, the
+   int8 error-feedback stage over the pod group with the scale's maximum
+   taken over the leaf's shards).  A world of one over NCCL on a (1, 1, 1)
+   ``("pod", "data", "model")`` mesh: olmo-1b at full width with 2 layers
+   in float32, ``fsdp=False``, 3 compressed steps beside the stacked form
+   with one pod from the same seed and batches: losses, every parameter
+   and every residual leaf bitwise equal; ``flash_attention`` launched as
+   the training step launches it and nothing else.  The cross-pod stage
+   alone timed (the median of 5 runs) beside its memory bound, 16 B a
+   parameter.
+13. One JSON line of the kernels, their launches and times.
+14. The card's ``nvidia-smi`` name and power limit, then the last line:
     ``{"ok": true, "device": {...}}``.
 
-The launch counts are set to 0 just before each path of phases 3–11 and read
+The launch counts are set to 0 just before each path of phases 3–12 and read
 just after it; they show which kernels ran on that path. The replay scale
 is 20% of the paper's 650 MiB index: 16,384 key pages and 16,384 value
 pages of 4 KiB on 16 chips, for every replay path, the sharded and reliable
@@ -4546,6 +4557,134 @@ def tp_serve_phase(dev, smi) -> dict:
     return total
 
 
+# ---------------------- phase 12: the compressed step on a pod mesh
+# A world of one over NCCL on a (1, 1, 1) ("pod", "data", "model") mesh:
+# olmo-1b at full width with TP_LAYERS layers in float32, fsdp off,
+# POD_STEPS compressed steps beside the stacked form with one pod, from
+# the same seed and batches; bitwise equal.
+POD_STEPS = 3
+POD_OPT = dict(lr=5e-3, warmup_steps=1)     # tests/test_distribution.py's
+POD_STAGE_RUNS = 5
+
+
+def pod_stage_bound(model) -> tuple:
+    """(parameters, the cross-pod stage's memory bound in ms): each
+    parameter's float32 gradient and residual read once, its new residual
+    and mean written once, 16 B a parameter at the HBM rate."""
+    n = sum(p.numel() for p in model.parameters())
+    return n, 16 * n / HBM_BW * 1e3
+
+
+def pod_compression_path(dev, smi) -> dict:
+    """The compressed step on a pod mesh of one (its pod, scale and data
+    all-reduces run over groups of one) against the stacked form with one
+    pod: losses, every parameter and every residual leaf equal bit for
+    bit; one ``flash_attention`` launch a layer a step (remat's recompute
+    too) and nothing else.  Then the cross-pod stage alone
+    (``compress_over_pods`` on one step's gradients: the scale's MAX
+    all-reduce, the quantize, the residual, the all-reduce of the
+    dequantized payload, over every leaf), the median of POD_STAGE_RUNS
+    runs by CUDA events, beside its memory bound."""
+    import torch.distributed as dist
+    from repro_torch.convert import tree_items
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.compression import compress_over_pods
+    from repro_torch.parallel.sharding import (batch_sharding, distribute,
+                                               shard_model)
+    from repro_torch.train.train_step import _sharded_grads
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TP_LAYERS,
+                              dtype="float32", fsdp=False)
+    opt_cfg = AdamWConfig(**POD_OPT)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TP_SEQ,
+                      global_batch=TP_BATCH, seed=0)
+    start_run()
+    stacked = init_model(cfg, seed=0, device=dev)
+    state = init_opt_state(param_tree(stacked), opt_cfg)
+    err = init_error_state(param_tree(stacked), 1)
+    step = make_compressed_train_step(cfg, opt_cfg)
+    losses = []
+    for i in range(POD_STEPS):
+        stacked, state, err, m = step(stacked, state, err,
+                                      batch_at_step(data, i, device=dev))
+        losses.append(float(m["loss"]))
+    want = {n: p.detach() for n, p in stacked.named_parameters()}
+    want.update({"residual " + ".".join(k): e for k, e in tree_items(err)})
+    n_params, bound_ms = pod_stage_bound(stacked)
+    del stacked, state, err
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1, 1), ("pod", "data", "model"), "cuda")
+        model = init_model(cfg, seed=0, device=dev)
+        shard_model(model, mesh, fsdp=False)
+        ostate = init_opt_state(param_tree(model), opt_cfg)
+        perr = init_error_state(param_tree(model), 1, mesh)
+        pstep = make_compressed_train_step(cfg, opt_cfg, mesh)
+        pod_losses = []
+        start_run()
+        for i in range(POD_STEPS):
+            batch = {k: distribute(v, mesh, batch_sharding(mesh))
+                     for k, v in batch_at_step(data, i, device=dev).items()}
+            model, ostate, perr, m = pstep(model, ostate, perr, batch)
+            pod_losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        grew = dict(native.LAUNCHES)
+        got = {n: p.full_tensor() for n, p in model.named_parameters()}
+        got.update({"residual " + ".".join(k): e.full_tensor()
+                    for k, e in tree_items(perr)})
+        differ = [k for k in want if not torch.equal(got[k], want[k])]
+        worst = max((float((got[k] - want[k]).abs().max()) for k in differ),
+                    default=0.0)
+        # the stage alone, on the last batch's gradients
+        _, grads = _sharded_grads(model, batch, mesh, 1, flash_attention,
+                                  mean_axes=("data",))
+        grads = nest(grads)
+        compress_over_pods(grads, perr, mesh)
+        times = []
+        for _ in range(POD_STAGE_RUNS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            compress_over_pods(grads, perr, mesh)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    if pod_losses != losses or differ:
+        raise AssertionError(
+            f"pod mesh of one: losses {pod_losses} vs the stacked form's "
+            f"{losses}; {len(differ)} leaves differ, the first {differ[:1]}, "
+            f"at most {worst}")
+    n_launch = POD_STEPS * launches_per_step(cfg)
+    if grew["flash_attention"] != n_launch or sum(grew.values()) != n_launch:
+        raise AssertionError(f"pod mesh of one: launches {grew}, expected "
+                             f"{n_launch} flash_attention")
+    stage_ms = float(np.median(times))
+    log(f"compressed step on a pod mesh of one over {backend} ({TRAIN_ARCH} "
+        f"full width, {TP_LAYERS} layers, float32, fsdp off, batch "
+        f"{TP_BATCH} x {TP_SEQ}, {POD_STEPS} steps): losses {pod_losses}, "
+        f"bitwise the stacked form's with one pod (every parameter and "
+        f"residual leaf); launches {grew}")
+    log(f"cross-pod stage alone ({n_params:,} parameters, {len(want) // 2} "
+        f"leaves): median {stage_ms:.6f} ms of {POD_STAGE_RUNS} runs "
+        f"{[round(t, 6) for t in times]}, memory bound {bound_ms:.6f} ms "
+        f"(16 B a parameter at {HBM_BW / 1e12} TB/s), "
+        f"{stage_ms / bound_ms:.2f}x; {smi}")
+    return grew
+
+
+def pod_compression_phase(dev, smi) -> dict:
+    t0 = time.perf_counter()
+    grew = pod_compression_path(dev, smi)
+    start_run()
+    log(f"phase 12 (the compressed step on a pod mesh) took "
+        f"{time.perf_counter() - t0:.3f} s; launches {grew}")
+    return grew
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--key-pages", type=int, default=16_384)
@@ -4575,7 +4714,7 @@ def main(argv=None) -> int:
     rows = kernel_checks(dev)
     attention_lse_checks(dev)
 
-    # 3.-11. The main paths.
+    # 3.-12. The main paths.
     launches, reports = main_path(args.key_pages, args.n_ops)
     for grew in (sharded_path(args.key_pages, args.n_ops, reports),
                  reliability_phase(args.key_pages, args.n_ops),
@@ -4585,14 +4724,14 @@ def main(argv=None) -> int:
                  serve_path(dev), reduced_serve_path(dev),
                  training_phase(dev, smi), families_phase(dev),
                  roofline_phase(dev), tp_training_phase(dev, smi),
-                 tp_serve_phase(dev, smi)):
+                 tp_serve_phase(dev, smi), pod_compression_phase(dev, smi)):
         for k in launches:
             launches[k] += grew[k]
     for k in KERNELS:
         if launches[k] == 0:
             raise AssertionError(f"{k} never launched on the main paths")
 
-    # 12. Kernels line.
+    # 13. Kernels line.
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],
          "replaces": KERNELS[k][1], "launches": launches[k],
@@ -4600,7 +4739,7 @@ def main(argv=None) -> int:
          "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
          "bound_by": r["bound"][1], "library_ms": r.get("library_ms")}
         for k, r in rows.items()]}), flush=True)
-    # 13. The card, then the result.
+    # 14. The card, then the result.
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

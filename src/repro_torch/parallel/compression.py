@@ -8,38 +8,62 @@ lineage; error feedback keeps the compressed reduction unbiased over
 time).
 
 :func:`compressed_psum_pod` is one leaf's reduction across the pods of a
-process group.  :func:`make_compressed_train_step` is the JAX package's
-stacked form (``per_pod_stacked``): each pod's gradient over its split of
-the batch (a leading pod axis), then the same int8 error-feedback mean on
-the stacked leaves — the psum semantics without a pod process group, so it
-runs on one device.  Parameters are replicated across pods (classic
-cross-pod data parallelism).
+process group.  :func:`make_compressed_train_step` builds the step in two
+forms:
+
+- on a ``(pod, data, model)`` mesh, the JAX package's ``shard_map`` step:
+  each pod computes the tensor-parallel gradient of the mean loss over its
+  own rows on its ``(data, model)`` submesh (``train_step._sharded_grads``
+  with the mean over ``data`` only), and each leaf goes through
+  :func:`compressed_psum_pod` over the rank's pod group
+  (:func:`compress_over_pods`);
+- with no mesh, the JAX package's stacked form (``per_pod_stacked``): each
+  pod's gradient over its split of the batch (a leading pod axis), then
+  the same int8 error-feedback mean on the stacked leaves, on one device.
+
+Parameters are replicated across pods (classic cross-pod data
+parallelism, ``fsdp=False``): FSDP over ``pod`` would make the cross-pod
+leg a reduce-scatter of disjoint shards with per-shard scales, so the step
+refuses a parameter split over ``pod``.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.convert import nest, param_tree, tree_items, tree_map
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.train.optimizer import AdamWConfig, adamw_update
-from repro_torch.train.train_step import value_and_grad
+from repro_torch.train.train_step import _sharded_grads, value_and_grad
+
+POD = "pod"
 
 
 def quantize_int8(x: torch.Tensor, scale) -> torch.Tensor:
     return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
 
 
-def compressed_psum_pod(g: torch.Tensor, err: torch.Tensor, group=None):
+def compressed_psum_pod(g: torch.Tensor, err: torch.Tensor, group=None,
+                        scale_groups=()):
     """int8 error-feedback mean over the ranks of ``group`` (one per pod)
     for one gradient leaf; no group means a single pod.
 
     g: this pod's gradient (f32);  err: this pod's carried residual.
     Returns (mean gradient, new residual).  Wire format: int8 payload +
-    one f32 scale per leaf per pod.
+    one f32 scale per leaf per pod.  ``g`` and ``err`` may be this rank's
+    shards of a leaf split over other mesh axes: ``scale_groups`` are
+    those axes' process groups, over which the largest ``|g + err|`` is
+    all-reduced (MAX), so that the scale is the whole leaf's, as under the
+    JAX ``shard_map``'s automatic data and model axes.
     """
     target = g + err
-    scale = torch.clamp(target.abs().max() / 127.0, min=1e-12)
+    top = target.abs().max()
+    for grp in scale_groups:
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=grp)
+    scale = torch.clamp(top / 127.0, min=1e-12)
     q = quantize_int8(target, scale)
     deq = q.float() * scale
     new_err = target - deq
@@ -65,27 +89,124 @@ def compress_stacked(g_stack: torch.Tensor, err_stack: torch.Tensor):
     return deq.mean(dim=0), target - deq
 
 
-def init_error_state(params: dict, n_pods: int) -> dict:
-    """Per-pod error feedback state: leading ``pod`` dim on every leaf."""
-    return tree_map(lambda p: torch.zeros((n_pods,) + tuple(p.shape),
-                                          dtype=torch.float32,
-                                          device=p.device), params)
+def _pod_dim(mesh) -> int:
+    if POD not in mesh.mesh_dim_names:
+        raise ValueError(f"the compressed step needs a {POD!r} mesh axis, "
+                         f"the mesh has {mesh.mesh_dim_names}")
+    return mesh.mesh_dim_names.index(POD)
 
 
-def make_compressed_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig):
-    """Train step with the int8 EF cross-pod gradient reduction, stacked.
+def _check_replicated_over_pods(params: dict, mesh) -> None:
+    at = _pod_dim(mesh)
+    split = [".".join(path) for path, p in tree_items(params)
+             if not isinstance(p, DTensor)
+             or isinstance(p.placements[at], Shard)]
+    if split:
+        raise ValueError(
+            f"parameters must be DTensors replicated over {POD!r} (shard "
+            f"the model with fsdp=False); not so: {split[:4]}")
+
+
+def error_state_placements(params, mesh) -> dict:
+    """The placements of each residual leaf ``(n_pods, *shape)`` (the JAX
+    ``error_state_shardings``): ``Shard(0)`` over ``pod``, and over every
+    other axis its parameter's placement with a split moved up one
+    dimension (``fsdp=False``: ``Replicate`` over ``data``, the
+    parameter's own ``model`` split).  JAX replicates the residual over
+    ``model`` (``P("pod")``); split with its leaf, the residual holds the
+    same values, and a rank adds its local shard to its local gradient
+    shard and keeps its new local residual with no gather.  ``params``: a
+    model sharded over ``mesh``, or its parameter tree."""
+    if isinstance(params, nn.Module):
+        params = param_tree(params)
+    _check_replicated_over_pods(params, mesh)
+
+    def one(p):
+        return tuple(Shard(0) if axis == POD
+                     else Shard(pl.dim + 1) if isinstance(pl, Shard)
+                     else Replicate()
+                     for axis, pl in zip(mesh.mesh_dim_names, p.placements))
+    return tree_map(one, params)
+
+
+def init_error_state(params: dict, n_pods: int, mesh=None) -> dict:
+    """Per-pod error feedback state: leading ``pod`` dim on every leaf.
+    With ``mesh``, each leaf is a DTensor placed by
+    :func:`error_state_placements`, this rank holding its pod's row."""
+    if mesh is None:
+        return tree_map(lambda p: torch.zeros((n_pods,) + tuple(p.shape),
+                                              dtype=torch.float32,
+                                              device=p.device), params)
+    if mesh.size(_pod_dim(mesh)) != n_pods:
+        raise ValueError(f"{n_pods} pods on a mesh of "
+                         f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+
+    def zeros(p, pl):
+        local = p.to_local()
+        return DTensor.from_local(
+            torch.zeros((1,) + tuple(local.shape), dtype=torch.float32,
+                        device=local.device), mesh, pl, run_check=False)
+    return tree_map(zeros, params, error_state_placements(params, mesh))
+
+
+def compress_over_pods(grads: dict, err_state: dict, mesh):
+    """The cross-pod stage of the step on ``mesh``: every leaf of
+    ``grads`` (this pod's gradient, a DTensor with its parameter's
+    placements) and of ``err_state`` (:func:`init_error_state`'s) through
+    :func:`compressed_psum_pod` over the rank's pod group, the scale's
+    maximum taken over the mesh axes that split the leaf.  Returns (the
+    mean gradient tree, the new residual tree), placed as their inputs."""
+    pod = mesh.get_group(POD)
+
+    def one(g, e):
+        over = [mesh.get_group(axis) for axis, pl in
+                zip(mesh.mesh_dim_names, g.placements)
+                if axis != POD and isinstance(pl, Shard)]
+        mean, new = compressed_psum_pod(g.to_local(), e.to_local()[0],
+                                        group=pod, scale_groups=over)
+        return (DTensor.from_local(mean, mesh, g.placements,
+                                   run_check=False),
+                DTensor.from_local(new[None], mesh, e.placements,
+                                   run_check=False))
+    flat = tree_map(one, grads, err_state)
+    return tree_map(lambda t: t[0], flat), tree_map(lambda t: t[1], flat)
+
+
+def make_compressed_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                               mesh=None, *, attention=flash_attention):
+    """Train step with the int8 EF cross-pod gradient reduction.
 
     Signature: (model, opt_state, err_state, batch) ->
                (model, opt_state, err_state, metrics).
-    The pod count is the leading dimension of ``err_state``'s leaves; the
-    batch splits into that many equal parts along its first axis.
+    ``batch`` is ``{"tokens", "labels"}`` and, for the VLM and audio
+    families, ``"frontend"``.
+
+    With ``mesh`` (axes ``pod``, ``data``, ``model``): the model is
+    sharded over it with ``fsdp=False`` (``parallel.sharding.shard_model``),
+    the batch distributed by ``batch_sharding`` (pod ``p`` holds the
+    ``p``-th contiguous part of the rows) and ``err_state`` is
+    :func:`init_error_state`'s with the mesh.  The loss and aux are the
+    means over the pods of each pod's mean over its own rows (JAX's
+    ``pmean``).  A mesh without a ``pod`` axis, or a parameter split over
+    it, raises ``ValueError``.
+
+    With no mesh, the stacked form on one device: the pod count is the
+    leading dimension of ``err_state``'s leaves, and the batch (frontend
+    included) splits into that many equal parts along its first axis.
     """
+    if mesh is not None:
+        _pod_dim(mesh)
+        return _pod_step(opt_cfg, mesh, attention)
 
     def train_step(model, opt_state, err_state, batch):
         tokens, labels = batch["tokens"], batch["labels"]
+        fe = batch.get("frontend")
         n_pods = next(tree_items(err_state))[1].shape[0]
-        per_pod = [value_and_grad(model, tok, lab) for tok, lab in zip(
-            tokens.chunk(n_pods), labels.chunk(n_pods))]
+        fes = [None] * n_pods if fe is None else fe.chunk(n_pods)
+        per_pod = [value_and_grad(model, tok, lab, frontend_embeds=f,
+                                  attention=attention)
+                   for tok, lab, f in zip(tokens.chunk(n_pods),
+                                          labels.chunk(n_pods), fes)]
         grads_stack = nest({name: torch.stack([g[name] for _, g in per_pod])
                              for name in per_pod[0][1]})
         flat = tree_map(compress_stacked, grads_stack, err_state)
@@ -95,6 +216,27 @@ def make_compressed_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig):
         aux = torch.stack([la[1] for la, _ in per_pod]).mean()
         _, opt_state, opt_metrics = adamw_update(grads, opt_state,
                                                  param_tree(model), opt_cfg)
+        metrics = {"loss": loss, "aux_loss": aux, **opt_metrics}
+        return model, opt_state, err_state, metrics
+
+    return train_step
+
+
+def _pod_step(opt_cfg: AdamWConfig, mesh, attention):
+    pod = mesh.get_group(POD)
+    n_pods = dist.get_world_size(pod)
+
+    def train_step(model, opt_state, err_state, batch):
+        params = param_tree(model)
+        _check_replicated_over_pods(params, mesh)
+        (loss, aux), grads = _sharded_grads(model, batch, mesh, 1, attention,
+                                            mean_axes=("data",))
+        grads, err_state = compress_over_pods(nest(grads), err_state, mesh)
+        for t in (loss, aux):
+            dist.all_reduce(t, group=pod)
+        loss, aux = loss / n_pods, aux / n_pods
+        _, opt_state, opt_metrics = adamw_update(grads, opt_state, params,
+                                                 opt_cfg)
         metrics = {"loss": loss, "aux_loss": aux, **opt_metrics}
         return model, opt_state, err_state, metrics
 

@@ -284,11 +284,12 @@ class TensorParallel:
     kv_slots: bool = False
 
     @classmethod
-    def of(cls, mesh, placements: dict,
-           caches: dict | None = None) -> "TensorParallel":
+    def of(cls, mesh, placements: dict, caches: dict | None = None,
+           mean_axes=("pod", "data")) -> "TensorParallel":
         """The plan from ``placements`` (dotted name -> a DTensor's
         placements) and, for the serve step, the caches' placements tree
-        (``launch.specs.cache_shardings``)."""
+        (``launch.specs.cache_shardings``).  ``unsplit`` names only the
+        data axes among ``mean_axes``, those the loss's mean spans."""
         names = mesh.mesh_dim_names
         data = tuple(a for a in ("pod", "data") if a in names)
         axes = {a: Axis.of(mesh, a) for a in data + ("model",)}
@@ -297,8 +298,8 @@ class TensorParallel:
             on = dict(zip(names, pl))
             gathers[name] = tuple((axes[a], on[a].dim) for a in reversed(data)
                                   if isinstance(on[a], Shard))
-            unsplit[name] = tuple(axes[a] for a in data
-                                  if not isinstance(on[a], Shard))
+            unsplit[name] = tuple(axes[a] for a in data if a in mean_axes
+                                  and not isinstance(on[a], Shard))
         kv = (caches or {}).get("kv")
         kv_slots = kv is not None and \
             dict(zip(names, kv[0]))["model"] == Shard(2)

@@ -175,8 +175,11 @@ def _mesh(model):
     return p.device_mesh if isinstance(p, DTensor) else None
 
 
-def _sum_over_data(t, mesh) -> None:
-    for axis in ("pod", "data"):
+BATCH_AXES = ("pod", "data")
+
+
+def _sum_over_data(t, mesh, axes=BATCH_AXES) -> None:
+    for axis in axes:
         if axis in mesh.mesh_dim_names:
             dist.all_reduce(t, group=mesh.get_group(axis))
 
@@ -200,19 +203,24 @@ def local_parameters(model):
             mod._parameters[attr] = p
 
 
-def _sharded_grads(model, batch, mesh, microbatches, attention):
-    """The gradient of the global batch's loss with respect to the DTensor
+def _sharded_grads(model, batch, mesh, microbatches, attention,
+                   mean_axes=BATCH_AXES):
+    """The gradient of the batch's loss with respect to the DTensor
     parameters of ``model``, each a DTensor with its parameter's
     placements, from the tensor-parallel program on this rank's shards
-    (the module docstring)."""
+    (the module docstring).  ``mean_axes``: the data axes the loss's mean
+    spans, by default the whole batch's; the compressed step passes
+    ``("data",)``, which gives each pod the mean over its own rows and
+    leaves the gradient unsummed over ``pod``."""
     params = dict(model.named_parameters())
-    tp = TensorParallel.of(mesh, {n: p.placements for n, p in params.items()})
+    tp = TensorParallel.of(mesh, {n: p.placements for n, p in params.items()},
+                           mean_axes=mean_axes)
     tokens, labels, fe = (
         batch[k].to_local() if isinstance(batch.get(k), DTensor)
         else batch.get(k) for k in ("tokens", "labels", "frontend"))
     count = (labels != IGNORE).sum().float()
     total = count.clone()
-    _sum_over_data(total, mesh)
+    _sum_over_data(total, mesh, mean_axes)
     share = count / torch.clamp(total, min=1.0)
     with local_parameters(model):
         (loss, aux), grads = value_and_grad(
@@ -226,8 +234,8 @@ def _sharded_grads(model, batch, mesh, microbatches, attention):
         out[name] = DTensor.from_local(g, mesh, params[name].placements,
                                        run_check=False)
     loss, aux = loss * share, aux * share
-    _sum_over_data(loss, mesh)
-    _sum_over_data(aux, mesh)
+    _sum_over_data(loss, mesh, mean_axes)
+    _sum_over_data(aux, mesh, mean_axes)
     return (loss, aux), out
 
 

@@ -1568,6 +1568,44 @@ def test_world_of_one_nccl_tp_step_equals_the_plain_step():
 
 
 @pytest.mark.gpu
+def test_world_of_one_nccl_pod_stage_is_bitwise_the_stacked_stage():
+    """The compressed step's cross-pod stage (``compress_over_pods``) on a
+    (1, 1, 1) ``("pod", "data", "model")`` mesh over NCCL, its MAX and sum
+    all-reduces run over groups of one, equals ``compress_stacked`` with
+    one pod bit for bit: the mean and the residual of seeded leaves."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.compression import (compress_over_pods,
+                                                  compress_stacked,
+                                                  error_state_placements)
+    from repro_torch.parallel.sharding import distribute
+    dev = _cuda_or_skip()
+    assert not dist.is_initialized()
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    shapes = {"split": ((64, 48), Shard(1)), "whole": ((33, 7), Replicate())}
+    g = {k: torch.randn(s, generator=gen).to(dev) for k, (s, _) in
+         shapes.items()}
+    e = {k: (torch.randn((1,) + s, generator=gen) * 1e-3).to(dev)
+         for k, (s, _) in shapes.items()}
+    want = {k: compress_stacked(g[k][None], e[k]) for k in shapes}
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1, 1), ("pod", "data", "model"), "cuda")
+        grads = {k: distribute(g[k], mesh, (Replicate(), Replicate(), pl))
+                 for k, (_, pl) in shapes.items()}
+        pl = error_state_placements(grads, mesh)
+        errs = {k: distribute(e[k], mesh, pl[k]) for k in shapes}
+        mean, new = compress_over_pods(grads, errs, mesh)
+        for k in shapes:
+            assert torch.equal(mean[k].full_tensor(), want[k][0]), k
+            assert torch.equal(new[k].full_tensor(), want[k][1]), k
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h_local", [1, 2])
 def test_attention_kernel_at_local_head_counts(dtype, h_local):

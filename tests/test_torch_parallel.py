@@ -26,23 +26,27 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import Shard
+from torch.distributed.tensor import Replicate, Shard
 
 from repro.parallel.compression import compressed_psum_pod as jpsum_pod
 from repro.parallel.compression import quantize_int8 as jquantize
 from repro_torch import configs
 from repro_torch.convert import param_tree, params_to_numpy, tree_items
+from repro_torch.launch.dryrun import fake_world
 from repro_torch.launch.mesh import production_mesh_spec
 from repro_torch.launch.train import train
 from repro_torch.models.model import LM, init_model, logical_axes
 from repro_torch.parallel.compression import (compress_stacked,
                                               compressed_psum_pod,
+                                              error_state_placements,
                                               init_error_state,
                                               make_compressed_train_step,
                                               quantize_int8)
 from repro_torch.parallel.sharding import (batch_sharding,
                                            block_compute_shardings,
+                                           distribute, shard_model,
                                            shardings_for_tree, spec_for)
 from repro_torch.train.data import DataConfig, batch_at_step
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state
@@ -369,13 +373,9 @@ def test_data_parallel_step_on_4_processes_matches_the_single_process_step(
     assert np.abs(np.subtract(got["train"], single.losses)).max() < 2e-2
 
 
-def test_host_mesh_step_equals_the_plain_step():
-    """``make_host_mesh`` (a process group of one on an in-process store):
-    the DTensor step on the (1, 1) mesh equals the plain step bit for
-    bit."""
-    import torch.distributed as dist
-    from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.parallel.sharding import distribute, shard_model
+def _world_of_one_equals_the_plain_step(make) -> None:
+    """The DTensor step on the mesh ``make()`` returns (a process group of
+    one on an in-process store) equals the plain step bit for bit."""
     assert not dist.is_initialized()
     cfg = dataclasses.replace(configs.reduced_config(configs.ARCHS["qwen3-4b"]),
                               dtype="float32")
@@ -386,8 +386,8 @@ def test_host_mesh_step_equals_the_plain_step():
     plain, _, m = make_train_step(cfg, opt_cfg)(
         plain, init_opt_state(param_tree(plain), opt_cfg), batch)
     try:
-        mesh = make_host_mesh()
-        assert mesh.mesh_dim_names == ("data", "model") and mesh.size() == 1
+        mesh = make()
+        assert mesh.size() == 1
         model = init_model(cfg, seed=0, device="cpu")
         shard_model(model, mesh, fsdp=cfg.fsdp)
         sharded = {k: distribute(v, mesh, batch_sharding(mesh))
@@ -399,3 +399,104 @@ def test_host_mesh_step_equals_the_plain_step():
             assert torch.equal(p.full_tensor(), q), n
     finally:
         dist.destroy_process_group()
+
+
+def test_host_mesh_step_equals_the_plain_step():
+    """``make_host_mesh`` (a process group of one on an in-process store):
+    the DTensor step on the (1, 1) mesh equals the plain step bit for
+    bit."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    def host_mesh():
+        mesh = make_host_mesh()
+        assert mesh.mesh_dim_names == ("data", "model")
+        return mesh
+    _world_of_one_equals_the_plain_step(host_mesh)
+
+
+# ------------------------------------ the compressed step on a pod mesh
+
+def _pod_world_model(arch, fsdp):
+    """A meta-device model of ``arch`` (full size) sharded over a (2, 2, 2)
+    ``("pod", "data", "model")`` mesh of the running ``fake`` group."""
+    mesh = DeviceMesh("cpu", torch.arange(8).view(2, 2, 2),
+                      mesh_dim_names=("pod", "data", "model"))
+    model = LM(configs.ARCHS[arch], torch.device("meta"))
+    shard_model(model, mesh, fsdp=fsdp)
+    return mesh, model
+
+
+def test_compressed_step_refuses_a_mesh_without_a_pod_axis():
+    cfg = configs.reduced_config(configs.ARCHS["olmo-1b"])
+    with pytest.raises(ValueError, match="'pod' mesh axis"):
+        make_compressed_train_step(cfg, AdamWConfig(), _mesh("2x2"))
+
+
+def test_compressed_step_refuses_parameters_split_over_pods():
+    """``fsdp=True`` splits the embed dimensions over (pod, data): the
+    step, the residual placements and the residuals refuse it."""
+    cfg = configs.ARCHS["olmo-1b"]
+    with fake_world(8):
+        mesh, model = _pod_world_model("olmo-1b", fsdp=True)
+        step = make_compressed_train_step(cfg, AdamWConfig(), mesh)
+        with pytest.raises(ValueError, match="replicated over 'pod'"):
+            step(model, {}, {}, {})
+        with pytest.raises(ValueError, match="replicated over 'pod'"):
+            error_state_placements(model, mesh)
+        with pytest.raises(ValueError, match="replicated over 'pod'"):
+            init_error_state(param_tree(model), 2, mesh)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_error_state_placements_follow_each_parameter(arch):
+    """Each residual leaf ``(2, *shape)`` is ``Shard(0)`` over pod,
+    ``Replicate`` over data, and its parameter's model split moved up one
+    dimension; ``init_error_state`` places zeros so, each rank holding its
+    pod's row of its parameter's local shard."""
+    with fake_world(8):
+        mesh, model = _pod_world_model(arch, fsdp=False)
+        params = param_tree(model)
+        placements = error_state_placements(model, mesh)
+        err = init_error_state(params, 2, mesh)
+        for (path, p), (_, pl), (_, e) in zip(tree_items(params),
+                                              tree_items(placements),
+                                              tree_items(err)):
+            pod, data, mod = p.placements
+            assert pod == Replicate() and data == Replicate(), path
+            want_model = Shard(mod.dim + 1) if isinstance(mod, Shard) \
+                else Replicate()
+            assert pl == (Shard(0), Replicate(), want_model), path
+            assert e.placements == pl and e.shape == (2,) + p.shape, path
+            assert e.to_local().shape == (1,) + p.to_local().shape, path
+
+
+def test_the_compressed_plan_leaves_pods_unsummed():
+    """The plain sharded step's plan sums each whole parameter's gradient
+    over pod and data (the whole batch's mean, as before the compressed
+    step existed); the compressed step's plan (``mean_axes=("data",)``)
+    over data only, leaving the cross-pod leg to the int8 stage."""
+    from repro_torch.parallel.tensor_parallel import TensorParallel
+    with fake_world(8):
+        mesh, model = _pod_world_model("olmo-1b", fsdp=False)
+        placements = {n: p.placements for n, p in model.named_parameters()}
+        plain = TensorParallel.of(mesh, placements)
+        pods = TensorParallel.of(mesh, placements, mean_axes=("data",))
+        for name in placements:
+            assert [a.group for a in plain.unsplit[name]] == [
+                mesh.get_group(a).group_name for a in ("pod", "data")]
+            assert [a.group for a in pods.unsplit[name]] == [
+                mesh.get_group("data").group_name]
+            assert plain.gathers[name] == pods.gathers[name] == ()
+
+
+def test_pod_mesh_world_of_one_plain_step_equals_the_plain_step():
+    """The plain sharded step on a (1, 1, 1) ``("pod", "data", "model")``
+    mesh of one process equals the plain one-device step bit for bit, as
+    on the (1, 1) host mesh."""
+    from repro_torch.launch.mesh import make_mesh
+
+    def pod_mesh():
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                world_size=1)
+        return make_mesh((1, 1, 1), ("pod", "data", "model"), "cpu")
+    _world_of_one_equals_the_plain_step(pod_mesh)

@@ -19,7 +19,9 @@ record the local shapes their layers see, round-trip a sharded
 checkpoint, resume a crashed run bitwise under deterministic algorithms,
 and count one step beside the dry run's meta trace of the same rank of a
 (2, 2) ``fake`` world.  Every subprocess has a time limit and the process
-group's store is a file under ``tmp_path``.
+group's store is a file under ``tmp_path``; the fixture waits for them
+all and names every one that failed or hung, with its exit code and the
+tail of its stderr.
 """
 import dataclasses
 import json
@@ -27,6 +29,7 @@ import os
 import subprocess
 import sys
 import textwrap
+import time
 from pathlib import Path
 
 import numpy as np
@@ -297,10 +300,40 @@ RANK_SCRIPT = textwrap.dedent("""
 """) % {"seq": SEQ, "batch": BATCH, "opt": OPT}
 
 
-def _spawn(args, env):
-    return subprocess.Popen([sys.executable, "-c", *args], env=env,
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True)
+def _spawn(out: Path, key: str, args: list, env: dict) -> subprocess.Popen:
+    """A Python subprocess whose stdout and stderr go to files under
+    ``out`` named after ``key`` (no pipe to fill while others run)."""
+    with open(out / f"{key}.stdout", "w") as so, \
+            open(out / f"{key}.stderr", "w") as se:
+        return subprocess.Popen([sys.executable, "-c", *args], env=env,
+                                stdout=so, stderr=se, text=True)
+
+
+def _wait_all(out: Path, procs: dict, limit: float) -> dict:
+    """Wait for every process of ``procs`` (key -> Popen of :func:`_spawn`)
+    within ``limit`` seconds in all; kill those still running.  Fails
+    naming every process that hung or exited non-zero, each with its
+    return code and the tail of its stderr; else returns each one's
+    stdout."""
+    deadline = time.monotonic() + limit
+    hung = []
+    for key, p in procs.items():
+        try:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+        except subprocess.TimeoutExpired:
+            hung.append(key)
+    for key in hung:
+        procs[key].kill()
+        procs[key].wait()
+    failed = [(key, p.returncode) for key, p in procs.items()
+              if key in hung or p.returncode != 0]
+    if failed:
+        pytest.fail("\n\n".join(
+            f"{key}: exit {rc}"
+            + (f", hung past {limit} s and killed" if key in hung else "")
+            + "\n" + (out / f"{key}.stderr").read_text()[-3000:]
+            for key, rc in failed))
+    return {key: (out / f"{key}.stdout").read_text() for key in procs}
 
 
 @pytest.fixture(scope="module")
@@ -320,25 +353,18 @@ def runs(tmp_path_factory):
     # one thread a process: nine processes share the host with the other
     # test workers, and the reduced configs' products are tiny
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
-    procs = {"jax": _spawn([JAX_SCRIPT, str(out), ",".join(ARCHS),
-                            json.dumps(MESHES)],
+    procs = {"jax": _spawn(out, "jax", [JAX_SCRIPT, str(out),
+                                        ",".join(ARCHS), json.dumps(MESHES)],
                            dict(env, JAX_PLATFORMS="cpu", XLA_FLAGS=
                                 "--xla_force_host_platform_device_count=4"))}
     for mname, shape in MESHES.items():
         for r in range(4):
-            procs[f"{mname}/{r}"] = _spawn(
-                [RANK_SCRIPT, str(r), str(out / f"store_{mname}"), str(out),
-                 mname, json.dumps(shape), ",".join(ARCHS), RESUME_ARCH,
-                 FAULT_ARCH], env)
-    try:
-        outs = {k: p.communicate(timeout=SUBPROCESS_S)
-                for k, p in procs.items()}
-    finally:
-        for p in procs.values():
-            p.kill()
-    for k, p in procs.items():
-        assert p.returncode == 0, (k, outs[k][1][-4000:])
-    line = [ln for ln in outs["jax"][0].splitlines()
+            procs[f"{mname}_{r}"] = _spawn(out, f"{mname}_{r}", [
+                RANK_SCRIPT, str(r), str(out / f"store_{mname}"), str(out),
+                mname, json.dumps(shape), ",".join(ARCHS), RESUME_ARCH,
+                FAULT_ARCH], env)
+    stdout = _wait_all(out, procs, SUBPROCESS_S)
+    line = [ln for ln in stdout["jax"].splitlines()
             if ln.startswith("RESULT ")]
     got = {"jax": json.loads(line[-1][len("RESULT "):]), "dir": out}
     for mname in MESHES:
