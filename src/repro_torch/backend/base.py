@@ -65,6 +65,7 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch import spans
 from repro_torch.core.commands import (Command, GatherResponse,
                                        LookupResponse, ReadFullResponse,
                                        SearchResponse)
@@ -101,14 +102,18 @@ class LazyResultBatch:
     tensors, attaching one of these to every ticket of the burst; the first
     ``result()`` call runs the host tail (device->host copy, de-randomize /
     verify, ticket resolution) for the whole burst at once.  ``run()`` is
-    idempotent — later tickets find themselves already resolved.
+    idempotent — later tickets find themselves already resolved.  With
+    spans on, the batch remembers its flush's span, so that the tail's
+    ``backend.tail`` span carries the flush's id and ``backend.result_wait``
+    reads how long the launch's outputs waited for it.
     """
 
-    __slots__ = ("_fn", "_exc")
+    __slots__ = ("_fn", "_exc", "_flush")
 
     def __init__(self, fn):
         self._fn = fn
         self._exc = None
+        self._flush = spans.ON and spans.open_flush()
 
     def run(self) -> None:
         if self._exc is not None:
@@ -117,11 +122,15 @@ class LazyResultBatch:
             raise self._exc
         fn, self._fn = self._fn, None
         if fn is not None:
+            s = spans.ON and spans.begin_tail(self._flush)
             try:
                 fn()
             except BaseException as e:
                 self._exc = e
                 raise
+            finally:
+                if s:
+                    spans.end(s)
 
 
 class Ticket:
@@ -206,7 +215,12 @@ class MatchBackend(abc.ABC):
 
     # ------------------------------------------------------------- storage
     def program_entries(self, page_addr: int, entries, **kw):
-        return self._program_page(page_addr, entries, kw)
+        s = spans.ON and spans.begin("backend.program")
+        try:
+            return self._program_page(page_addr, entries, kw)
+        finally:
+            if s:
+                spans.end(s)
 
     def _program_page(self, page_addr: int, entries, kw):
         """Program one page on the chip model, eager or deferred.  The

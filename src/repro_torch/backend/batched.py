@@ -63,6 +63,7 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch import spans
 from repro_torch.core import ecc
 from repro_torch.core.bits import (CHUNK_BYTES, CHUNKS_PER_PAGE,
                                    SLOTS_PER_CHUNK, popcount_words,
@@ -344,6 +345,7 @@ def launch_lookups(be, lookups, block: int, rel, opens,
                    verdicts=None) -> int:
     """Fused read burst: search + slot select + value gather, 1 launch.
     Returns the unique key and value pages the launch read."""
+    s = spans.ON and spans.begin("backend.flush.stage")
     key_addrs = [cmd.page_addr for cmd, _ in lookups]
     val_addrs = [cmd.value_page for cmd, _ in lookups]
     k_rows = be.store.rows_for(key_addrs)
@@ -356,13 +358,18 @@ def launch_lookups(be, lookups, block: int, rel, opens,
     m = np.full((n_pad, 2), 0xFFFFFFFF, dtype=np.uint32)  # pad rows miss
     q[:n] = np.asarray([cmd.query for cmd, _ in lookups], np.uint32)
     m[:n] = np.asarray([cmd.mask for cmd, _ in lookups], np.uint32)
+    q_t, m_t = words_to_tensor(q, be.device), words_to_tensor(m, be.device)
+    if s:
+        spans.end(s)
 
     # Key and value pages are read in place from the one arena.
     lo, hi, ids, seeds = be.store.arena()
+    s = spans.ON and spans.begin("backend.flush.launch")
     bm, val, slots = sim_fused_lookup(
-        lo, hi, lo, hi, words_to_tensor(q, be.device),
-        words_to_tensor(m, be.device), ids, seeds, randomized=True,
+        lo, hi, lo, hi, q_t, m_t, ids, seeds, randomized=True,
         key_rows=key_idx, value_rows=value_idx)
+    if s:
+        spans.end(s)
 
     snap = snapshot_parities(be.chips, val_addrs)
 
@@ -370,14 +377,16 @@ def launch_lookups(be, lookups, block: int, rel, opens,
              rel=rel, opens=opens, verdicts=verdicts):
         be.stats.result_bytes += resolve_lookup_responses(
             be.chips, lookups, tensor_to_words(bm)[:n],
-            tensor_to_words(val)[:n], slots.cpu().numpy()[:n], snap,
-            rel, opens, verdicts)
+            tensor_to_words(val)[:n],
+            tensor_to_words(slots).view(np.int32)[:n], snap, rel, opens,
+            verdicts)
     be._defer_all(lookups, tail)
     return len(set(key_addrs) | set(val_addrs))
 
 
 def launch_gathers(be, gathers, block: int, rel, opens) -> None:
     """Bitmap-selected chunk gather of every queued page, 1 launch."""
+    s = spans.ON and spans.begin("backend.flush.stage")
     addrs = [cmd.page_addr for cmd, _ in gathers]
     rows = be.store.rows_for(addrs)
     n = len(gathers)
@@ -385,11 +394,16 @@ def launch_gathers(be, gathers, block: int, rel, opens) -> None:
     row_idx, = be.store.upload_rows(rows, pad_to=n_pad)
     bm = np.zeros((n_pad, 2), dtype=np.uint32)   # pad rows gather nothing
     bm[:n] = np.asarray([cmd.chunk_bitmap for cmd, _ in gathers], np.uint32)
+    bm_t = words_to_tensor(bm, be.device)
+    if s:
+        spans.end(s)
     # The kernel reads the arena's rows in place: no gather copies.
     lo, hi, _, _ = be.store.arena()
-    out, _counts = sim_gather(lo, hi, words_to_tensor(bm, be.device),
-                              max_out=CHUNKS_PER_PAGE,
+    s = spans.ON and spans.begin("backend.flush.launch")
+    out, _counts = sim_gather(lo, hi, bm_t, max_out=CHUNKS_PER_PAGE,
                               rows=row_idx)    # (Npad, 64, 16)
+    if s:
+        spans.end(s)
     snap = snapshot_parities(be.chips, addrs)
 
     def tail(out=out, gathers=gathers, n=n, snap=snap, rel=rel,
@@ -452,12 +466,24 @@ class BatchedKernelBackend(MatchBackend):
                 + self.pending_programs)
 
     def flush(self) -> None:
+        s = spans.ON and spans.begin(spans.FLUSH, spans.new_flush())
+        try:
+            self._flush()
+        finally:
+            if s:
+                spans.end(s)
+
+    def _flush(self) -> None:
         # Deferred programs first: one grouped chip-program pass, then ONE
         # plane-store scatter re-stages every programmed row.
+        s = (spans.ON and self._program_queue
+             and spans.begin("backend.flush.programs"))
         programs = self._execute_programs()
         if programs:
             self.store.stage_group(programs)
             self.stats.staged_bytes = self.store.staged_bytes
+        if s:
+            spans.end(s)
         if not (self._searches or self._gathers or self._lookups
                 or self._plans):
             if programs:
@@ -492,6 +518,7 @@ class BatchedKernelBackend(MatchBackend):
 
     # ------------------------------------------------------------- staging
     def _flush_searches(self, searches, opens) -> None:
+        s = spans.ON and spans.begin("backend.flush.stage")
         # Unique pages -> arena rows; unique (query, mask) -> operand rows.
         page_rows: dict[int, int] = {}
         query_rows: dict[tuple, int] = {}
@@ -522,13 +549,18 @@ class BatchedKernelBackend(MatchBackend):
         m = np.zeros_like(q)
         q[:n_queries] = np.asarray(q_pairs, dtype=np.uint32)
         m[:n_queries] = np.asarray(m_pairs, dtype=np.uint32)
+        q_t, m_t = (words_to_tensor(q, self.device),
+                    words_to_tensor(m, self.device))
+        if s:
+            spans.end(s)
 
         # The kernel reads the arena's rows in place: no gather copies.
         lo, hi, ids, seeds = self.store.arena()
-        out = sim_search(lo, hi, words_to_tensor(q, self.device),
-                         words_to_tensor(m, self.device), ids, seeds,
-                         randomized=True,
+        s = spans.ON and spans.begin("backend.flush.launch")
+        out = sim_search(lo, hi, q_t, m_t, ids, seeds, randomized=True,
                          rows=page_rows_idx)   # (Qpad, Npad, 16)
+        if s:
+            spans.end(s)
 
         self.stats.kernel_launches += 1
         self.stats.staged_pages += len(addrs)
@@ -567,6 +599,7 @@ class BatchedKernelBackend(MatchBackend):
         sharing both land on the same launch cell).  Pass rows and groups
         pad to powers of two, page rows to ``padded_rows``.
         """
+        s = spans.ON and spans.begin("backend.flush.stage")
         page_rows: dict[int, int] = {}
         group_rows: dict[tuple, int] = {}
         addrs: list[int] = []
@@ -597,11 +630,15 @@ class BatchedKernelBackend(MatchBackend):
         f = np.zeros((g_pad, p_pad), dtype=np.uint32)
         for gi, (inc, exc) in enumerate(groups):
             q[gi], m[gi], f[gi] = plan_pass_rows(inc, exc, p_pad)
+        q_t, m_t, f_t = (words_to_tensor(a, self.device) for a in (q, m, f))
+        if s:
+            spans.end(s)
 
-        out = sim_plan(lo, hi, words_to_tensor(q, self.device),
-                       words_to_tensor(m, self.device),
-                       words_to_tensor(f, self.device), page_ids, page_seeds,
+        s = spans.ON and spans.begin("backend.flush.launch")
+        out = sim_plan(lo, hi, q_t, m_t, f_t, page_ids, page_seeds,
                        randomized=True)        # (Gpad, Npad, 16)
+        if s:
+            spans.end(s)
 
         self.stats.kernel_launches += 1
         self.stats.staged_pages += len(addrs)

@@ -31,6 +31,7 @@ import weakref
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core.bits import PAGE_BYTES, SLOTS_PER_PAGE
 from repro_torch.core.engine import SimChipArray
 from repro_torch.device import resolve_device
@@ -165,8 +166,9 @@ class PlaneStore:
         stream of the arena's device): a launch queued before the update
         reads the planes of its flush.
         """
-        idx = torch.as_tensor([self._row[a] for a in addrs], dtype=torch.int64,
-                              device=self.device)
+        s = spans.ON and spans.begin("planestore.restage")
+        idx = words_to_tensor([self._row[a] for a in addrs], self.device,
+                              np.int64)
         raws, ids, seeds = [], [], []
         for a in addrs:
             chip, local = self.chips.route(a)
@@ -183,6 +185,8 @@ class PlaneStore:
         self._dirty.difference_update(addrs)
         self.staged_rows += len(addrs)
         self.staged_bytes += len(addrs) * PAGE_BYTES
+        if s:
+            spans.end(s)
 
     # ----------------------------------------------------------------- access
     def arena(self):
@@ -207,7 +211,7 @@ class PlaneStore:
                 raise ValueError(f"{len(rows)} rows do not fit in {pad_to}")
             self._check_resident(rows)
             r[i, :len(rows)] = rows
-        idx = torch.from_numpy(r).to(self.device)
+        idx = words_to_tensor(r, self.device, np.int32)
         return tuple(idx[i, :pad_to] for i in range(len(row_sets)))
 
     def upload_rows2d(self, rows: np.ndarray) -> torch.Tensor:
@@ -219,8 +223,7 @@ class PlaneStore:
         if rows.ndim != 2:
             raise ValueError(f"rows must be (C, R), got shape {rows.shape}")
         self._check_resident(rows)
-        return torch.from_numpy(
-            np.ascontiguousarray(rows, dtype=np.int32)).to(self.device)
+        return words_to_tensor(rows, self.device, np.int32)
 
     def _check_resident(self, rows: np.ndarray) -> None:
         """Refuse rows the arena does not hold: the kernels trust them."""
@@ -239,7 +242,7 @@ class PlaneStore:
         """
         r = np.zeros(pad_to, np.int64)
         r[:len(rows)] = rows
-        ridx = torch.from_numpy(r).to(self.device)
+        ridx = words_to_tensor(r, self.device, np.int64)
         return self._select(ridx)
 
     def take2d(self, rows: np.ndarray):
@@ -247,7 +250,7 @@ class PlaneStore:
         tensor: the chip-axis plan flush's operands.  Returns (lo (C, R,
         512), hi (C, R, 512), ids (C, R), seeds (C, R))."""
         rows = np.asarray(rows, np.int64)
-        ridx = torch.from_numpy(rows.ravel()).to(self.device)
+        ridx = words_to_tensor(rows.ravel(), self.device, np.int64)
         lo, hi, ids, seeds = self._select(ridx)
         c, r = rows.shape
         return (lo.reshape(c, r, SLOTS_PER_PAGE), hi.reshape(c, r,

@@ -26,6 +26,8 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch import spans
+
 from . import ecc
 from .bits import CHUNK_BYTES, CHUNKS_PER_PAGE, PAGE_BYTES, unpack_bitmap
 from .commands import (Command, GatherResponse, Op, ReadFullResponse,
@@ -92,6 +94,7 @@ class SimChip:
                         header_user: np.ndarray | None = None) -> BuiltPage:
         if not (0 <= page_addr < self.n_pages):
             raise IndexError(page_addr)
+        s = spans.ON and spans.begin("chip.program")
         built = build_page(entries, page_addr, timestamp_ns=timestamp_ns,
                            header_user=header_user,
                            device_seed=self.device_seed)
@@ -101,6 +104,8 @@ class SimChip:
             clean_raw=built.raw.copy())
         self.counters.programs += 1
         self._notify(page_addr)
+        if s:
+            spans.end(s)
         return built
 
     def inject_bit_errors(self, page_addr: int, n_bits: int,

@@ -11,6 +11,8 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch import spans
+
 from . import ecc
 from .bits import (PAGE_BYTES, SLOTS_PER_CHUNK, SLOTS_PER_PAGE,
                    bytes_to_slot_words, slot_words_to_bytes,
@@ -47,16 +49,22 @@ def build_page(entries: np.ndarray, page_addr: int, *, timestamp_ns: int = 0,
     slots = np.full(USER_SLOTS, EMPTY_SLOT, dtype=np.uint64)
     slots[:entries.size] = entries
 
-    header = ecc.build_header_chunk(timestamp_ns, header_user)
     body = slot_words_to_bytes(u64_array_to_pairs(slots))
+    s = spans.ON and spans.begin("chip.ecc")
+    header = ecc.build_header_chunk(timestamp_ns, header_user)
     plain = np.concatenate([header, body]).astype(np.uint8)
     assert plain.size == PAGE_BYTES
 
     parities = ecc.build_chunk_parities(plain)
+    if s:
+        spans.end(s)
     if randomize:
+        s = spans.ON and spans.begin("chip.randomize")
         words = bytes_to_slot_words(plain)
         rnd = randomize_page_words(words, page_addr, device_seed)
         raw = slot_words_to_bytes(rnd)
+        if s:
+            spans.end(s)
     else:
         raw = plain.copy()
     return BuiltPage(raw=raw, plain=plain, chunk_parities=parities,

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from repro_torch import spans
 from repro_torch.backend.base import MatchBackend, as_backend
 from repro_torch.buffer.writebuffer import WriteBuffer
 from repro_torch.core.bits import SLOTS_PER_CHUNK, unpack_bitmap
@@ -131,16 +132,21 @@ class ReplayCore:
         key pages are never written, so a buffered value page always
         implies the key exists on its key page).
         """
-        self.n_reads += 1
-        if self.wb is not None:
-            overlay = self.wb.get(int(self.workload.value_pages[qi]))
-            if overlay is not None:
-                k = int(self.workload.keys[qi])
-                self.out[qi] = overlay[k % KEYS_PER_PAGE]
-                self.hits[qi] = True
-                return False
-        self.pending.append(qi)
-        return True
+        s = spans.ON and spans.begin("frontend.read")
+        try:
+            self.n_reads += 1
+            if self.wb is not None:
+                overlay = self.wb.get(int(self.workload.value_pages[qi]))
+                if overlay is not None:
+                    k = int(self.workload.keys[qi])
+                    self.out[qi] = overlay[k % KEYS_PER_PAGE]
+                    self.hits[qi] = True
+                    return False
+            self.pending.append(qi)
+            return True
+        finally:
+            if s:
+                spans.end(s)
 
     def resolve_burst(self) -> None:
         """Flush the open read burst (no-op when nothing is pending).
@@ -150,25 +156,35 @@ class ReplayCore:
         device arena alive after the replay until the garbage collector
         runs.
         """
-        if self.config.fused:
-            self._resolve_burst_fused()
-        else:
-            self._resolve_burst_split()
+        s = spans.ON and spans.begin("frontend.burst")
+        try:
+            if self.config.fused:
+                self._resolve_burst_fused()
+            else:
+                self._resolve_burst_split()
+        finally:
+            if s:
+                spans.end(s)
 
     def _drain(self, lookups) -> None:
-        for qi, t in lookups:
-            try:
-                r = require_clean(t.result())
-            except UncorrectableReadError:
-                self.read_errors[qi] = True
-                continue
-            except DegradedReadError:
-                self.op_errors[qi] = True   # no live replica left
-                continue
-            if r.value_slot is None:
-                continue
-            self.out[qi] = int.from_bytes(r.value, "little")
-            self.hits[qi] = True
+        s = spans.ON and spans.begin("frontend.drain")
+        try:
+            for qi, t in lookups:
+                try:
+                    r = require_clean(t.result())
+                except UncorrectableReadError:
+                    self.read_errors[qi] = True
+                    continue
+                except DegradedReadError:
+                    self.op_errors[qi] = True   # no live replica left
+                    continue
+                if r.value_slot is None:
+                    continue
+                self.out[qi] = int.from_bytes(r.value, "little")
+                self.hits[qi] = True
+        finally:
+            if s:
+                spans.end(s)
 
     def drain_inflight(self) -> None:
         while self._inflight:
@@ -267,6 +283,14 @@ class ReplayCore:
         resolved first so the plan flush stays a dedicated launch.
         Returns the touched pages (the event loop's timing footprint).
         """
+        s = spans.ON and spans.begin("frontend.scan")
+        try:
+            return self._scan(qi)
+        finally:
+            if s:
+                spans.end(s)
+
+    def _scan(self, qi: int) -> list[int]:
         self.resolve_burst()
         wl = self.workload
         pages = self.scan_pages(qi)
@@ -275,9 +299,12 @@ class ReplayCore:
         k = int(wl.keys[qi])
         lo = k + 1
         hi = min(lo + int(wl.scan_lens[qi]), self.n_keys + 1)
+        s = spans.ON and spans.begin("frontend.scan.plan")
+        plan = exact_range(lo, hi, width=64)
+        if s:
+            spans.end(s)
         try:
-            bitmaps = evaluate_plan_on_pages(
-                self.backend, exact_range(lo, hi, width=64), pages)
+            bitmaps = evaluate_plan_on_pages(self.backend, plan, pages)
         except UncorrectableReadError:
             # Any touched page failing outer-code decode voids the whole
             # scan — a partial count would be a silently wrong result.
@@ -310,6 +337,14 @@ class ReplayCore:
         [])`` when the buffer swallowed it, or ``("flush", pages)`` when
         it tripped the high-water mark and the listed pages drained.
         """
+        s = spans.ON and spans.begin("frontend.write")
+        try:
+            return self._write(qi)
+        finally:
+            if s:
+                spans.end(s)
+
+    def _write(self, qi: int) -> tuple[str, list[int]]:
         self.n_writes += 1
         wl = self.workload
         k = int(wl.keys[qi])

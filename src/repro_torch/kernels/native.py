@@ -29,6 +29,8 @@ from pathlib import Path
 
 import torch
 
+from repro_torch import spans
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -50,6 +52,10 @@ SIGNATURES = {
     "flash_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                ctypes.c_float, _I, _I, _I, _I, _I, _P),
 }
+
+# Each entry point launches one kernel; its function's name in a trace.
+TRACE_NAMES = ("search_kernel", "gather_kernel", "lookup_kernel",
+               "plan_kernel", "fused_kernel", "attn_kernel")
 
 LAUNCHES = {"sim_search": 0, "sim_gather": 0, "sim_lookup": 0,
             "sim_plan": 0, "sim_fused": 0, "flash_attention": 0}
@@ -128,10 +134,13 @@ def library() -> ctypes.CDLL:
 def launch(entry: str, *args, device: torch.device) -> None:
     """Call C entry point ``entry`` on ``device``'s current stream; raise if
     the launch is refused.  Tensor arguments pass as their data pointers,
-    ``None`` as a null pointer."""
+    ``None`` as a null pointer.  The call is the ``kernel.launch`` span."""
+    s = spans.ON and spans.begin("kernel.launch")
     stream = torch.cuda.current_stream(device).cuda_stream
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     err = getattr(library(), entry)(*cargs, device.index, stream)
+    if s:
+        spans.end(s)
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA error {err} at launch")
 

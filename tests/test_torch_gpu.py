@@ -9,13 +9,15 @@ the same integer function.  Flash attention is held at 2e-6 (float32) and
 2e-2 (bfloat16), the JAX package's own tolerances: the kernel sums in
 another order than the plain version.
 """
+import collections
 import dataclasses
+import time
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch import database_index
+from repro_torch import database_index, spans
 import repro_torch.backend.batched as batched_mod
 import repro_torch.backend.sharded as sharded_mod
 from repro_torch.analysis.conservation import run_conservation
@@ -30,7 +32,7 @@ from repro_torch.frontend import RunConfig, replay
 from repro_torch.index.btree import SimBTree
 from repro_torch.index.hashindex import BUCKET_CAPACITY, SimHashIndex
 from repro_torch.index.secondary import SimSecondaryIndex
-from repro_torch.kernels import native
+from repro_torch.kernels import layout, native
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.layout import words_to_tensor
@@ -773,6 +775,70 @@ def test_reprogram_between_flush_and_drain_on_card(kind):
                 (b.value_slot, b.value, b.parity_ok)
             a, b = a.search, b.search
         np.testing.assert_array_equal(a.bitmap_words, b.bitmap_words)
+
+
+@pytest.mark.gpu
+def test_counted_copies_are_the_traces_memcpys_and_launches_map():
+    """``layout.COPIES`` over three lookup flushes (the first with a
+    restage) and three plan flushes, their tails included, equals the
+    profiler's Memcpy events by direction, and every SiM kernel starts
+    after the mapped start of the ``kernel.launch`` span that issued it."""
+    dev = _cuda_or_skip()
+    arr = SimChipArray(n_chips=4, pages_per_chip=8, device_seed=2)
+    be = make_backend("batched", arr, device=dev)
+    keys = np.arange(1, 101, dtype=np.uint64)
+    for p in range(16):
+        be.program_entries(p, keys + 1000 * p)
+    plan = exact_range(10, 60, width=64)
+    for t in [be.submit_lookup(Command.lookup(p, p + 8, 5))
+              for p in range(8)] + [
+            be.submit_plan(Command.plan(p, plan.include, plan.exclude))
+            for p in range(8)]:
+        t.result()                          # stages, builds, warms
+    be.program_entries(3, keys * 3)         # restaged by the first flush
+    torch.cuda.synchronize(dev)
+    layout.reset_copies()
+    spans.reset()
+    spans.enable()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        wall, perf = time.time_ns(), time.perf_counter_ns()
+        spans.mark()
+        got = []
+        for _ in range(3):
+            lookups = [be.submit_lookup(Command.lookup(
+                p, p + 8, int(keys[3]) + 1000 * p)) for p in (0, 1, 2)]
+            lookups.append(be.submit_lookup(Command.lookup(3, 11, 12)))
+            be.flush()
+            plans = [be.submit_plan(Command.plan(p, plan.include,
+                                                 plan.exclude))
+                     for p in (1, 2, 4)]
+            be.flush()
+            got += [t.result().value_slot for t in lookups]
+            for t in plans:
+                t.result()
+        torch.cuda.synchronize(dev)
+        spans.disable()
+    assert got == [11] * 12
+    events = prof.profiler.kineto_results.events()
+    on_card = [e for e in events
+               if e.device_type() == torch.autograd.DeviceType.CUDA]
+    copies = collections.Counter(
+        "h2d" if "HtoD" in e.name() else "d2h" for e in on_card
+        if e.name().startswith("Memcpy"))
+    # Restage: indices + 4 planes; a lookup flush: rows + q + m; a plan
+    # flush: take's rows + q + m + f; tails: 3 outputs, 1 output.
+    assert dict(copies) == {"h2d": 5 + 3 * (3 + 4), "d2h": 3 * (3 + 1)}
+    assert (layout.COPIES["h2d"], layout.COPIES["d2h"]) == (26, 12)
+    kernels, runtime = spans.trace_launches(events)
+    pairs = spans.launch_pairs(spans.records(), kernels, native.TRACE_NAMES)
+    assert pairs is not None and len(pairs) == 6
+    cal = spans.clock_offset(pairs, runtime)
+    offset = wall - perf if cal is None else cal[0]
+    drift = spans.device_drift(pairs, runtime)
+    violations, lag = spans.check_launches(pairs, offset, drift)
+    assert violations == 0 and lag >= 0
+    spans.reset()
 
 
 # ------------------------------------------------------- the §V indexes
