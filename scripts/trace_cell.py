@@ -11,6 +11,8 @@ runs.  Prints, as the last line, JSON with the run's result line and:
 * ``per_op``: each span's total and self time per op (us), and the readings
   a benchmark reader would take from them (``readings``);
 * ``copies``: ``kernels/layout.COPIES`` over those ops, per op;
+* ``row_passes``: ``core/ecc.ROW_PASSES`` over those ops, per op (the
+  branch each row CRC pass took);
 * ``inside_outside``: the top-level backend spans' time (``backend.flush``,
   ``backend.tail``, ``backend.program``) over the benchmark's own backend
   time from its wrappers;
@@ -49,6 +51,7 @@ sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 import torch  # noqa: E402
 
 from repro_torch import spans  # noqa: E402
+from repro_torch.core import ecc  # noqa: E402
 from repro_torch.kernels import layout, native  # noqa: E402
 from simbench import runner  # noqa: E402
 from simbench.tracer import Tracer  # noqa: E402
@@ -77,17 +80,21 @@ class SpanTracer(Tracer):
         self.gaps = []
         self.before = {}
         self.copies = {}
+        self.row_passes = {}
 
     def install(self, backend) -> None:
         super().install(backend)
         spans.reset()
         self.copies0 = dict(layout.COPIES)
+        self.passes0 = dict(ecc.ROW_PASSES)
         spans.enable()
 
     def begin_profile(self) -> None:
         self.before = spans.totals()
         self.copies = {k: v - self.copies0[k]
                        for k, v in layout.COPIES.items()}
+        self.row_passes = {k: v - self.passes0[k]
+                           for k, v in ecc.ROW_PASSES.items()}
         super().begin_profile()
         spans.mark()
 
@@ -125,6 +132,7 @@ def analyse(tracer: SpanTracer, win: Window) -> dict:
     out = {"span_ops": win.span_ops, "span_s": win.span_s,
            "readings": readings, "per_op": per_op,
            "copies": {k: v / ops for k, v in tracer.copies.items()},
+           "row_passes": {k: v / ops for k, v in tracer.row_passes.items()},
            "inside_outside": (inside / tracer.backend_s
                               if tracer.backend_s else None),
            "backend_s": tracer.backend_s, "inside_s": inside}

@@ -76,7 +76,7 @@ def _as_u8(data: np.ndarray | bytes) -> np.ndarray:
 
 def _crc32_bytewise(data: np.ndarray | bytes) -> int:
     """Reference per-byte CRC-32; kept as the property-test oracle and the
-    short-buffer path of the vectorized :func:`crc32`."""
+    tail of the long-buffer fold (:func:`_crc_fold`)."""
     buf = _as_u8(data)
     crc = np.uint32(0xFFFFFFFF)
     for b in buf:
@@ -92,6 +92,94 @@ def _crc64_bytewise(data: np.ndarray | bytes) -> int:
         crc = _CRC64_TABLE[(crc ^ np.uint64(b)) & np.uint64(0xFF)] ^ (
             crc >> np.uint64(8))
     return int(crc ^ np.uint64(0xFFFFFFFFFFFFFFFF))
+
+
+# Position tables.  A CRC is affine in its input bytes: the CRC of an n-byte
+# row is c_n XOR (XOR over positions i of P[i][byte_i]), where P[i] holds a
+# byte's contribution with n-1-i bytes after it (the byte table followed by
+# that many zero bytes, from a zero register) and c_n is the CRC of n zero
+# bytes.  A width-n row reads the last n positions of a table, so one table
+# serves every width up to _TABLE_POSITIONS, crc32/crc64's short buffers
+# included.  A row pass is then gathers and XORs, with no byte-by-byte chain
+# through the register.
+
+_ROW_BYTES = 64  # fold granularity of the vectorized single-buffer CRCs
+_TABLE_POSITIONS = 2 * _ROW_BYTES - 1
+# Row bytes up to which one gather over the whole (k, n) array beats a loop
+# over the n positions (whose gathers are k long).  On an H100 machine's
+# host (scripts/crc_crossover.py) the gather won both CRCs up to 1,536 rows
+# of 64 B and the loop from 2,048, where the CRC-64 gather's index and value
+# arrays (2 MiB) fall out of cache and it slows fivefold.
+_GATHER_MAX_BYTES = 96 * 1024
+_POSITION_OFFSETS = np.arange(_TABLE_POSITIONS, dtype=np.intp) * 256
+
+# Row passes since import, by branch: "gather" (one gather and an
+# XOR-reduce), "columns" (a gather a position), "loop" (rows wider than
+# the tables: the register through each byte position in turn).
+ROW_PASSES = {"gather": 0, "columns": 0, "loop": 0}
+
+
+def _crc_rows_loop(rows: np.ndarray, table: np.ndarray) -> np.ndarray:
+    """The register through a row's byte positions in turn, all rows at
+    once (rows wider than the position tables)."""
+    dt = table.dtype.type
+    ones, low, eight = dt(~dt(0)), dt(0xFF), dt(8)
+    crc = np.full(rows.shape[0], ones, dtype=table.dtype)
+    for i in range(rows.shape[1]):
+        crc = table[(crc ^ rows[:, i]) & low] ^ (crc >> eight)
+    return crc ^ ones
+
+
+def _position_table(table: np.ndarray) -> np.ndarray:
+    """(_TABLE_POSITIONS, 256): entry [j, b] is byte b's contribution with
+    _TABLE_POSITIONS - 1 - j zero bytes after it."""
+    dt = table.dtype.type
+    pos = np.empty((_TABLE_POSITIONS, 256), dtype=table.dtype)
+    pos[-1] = table
+    for j in range(_TABLE_POSITIONS - 2, -1, -1):
+        pos[j] = table[pos[j + 1] & dt(0xFF)] ^ (pos[j + 1] >> dt(8))
+    return pos
+
+
+def _zero_row_crcs(table: np.ndarray) -> np.ndarray:
+    """(_TABLE_POSITIONS + 1,): entry n is the CRC of n zero bytes, read off
+    one register run through _TABLE_POSITIONS zeros."""
+    dt = table.dtype.type
+    ones = dt(~dt(0))
+    out = np.zeros(_TABLE_POSITIONS + 1, dtype=table.dtype)
+    reg = ones
+    for n in range(1, _TABLE_POSITIONS + 1):
+        reg = table[reg & dt(0xFF)] ^ (reg >> dt(8))
+        out[n] = reg ^ ones
+    return out
+
+
+_CRC32_POSITIONS = _position_table(_CRC32_TABLE)
+_CRC64_POSITIONS = _position_table(_CRC64_TABLE)
+_CRC32_ZERO_ROWS = _zero_row_crcs(_CRC32_TABLE)
+_CRC64_ZERO_ROWS = _zero_row_crcs(_CRC64_TABLE)
+
+
+def _crc_rows(rows: np.ndarray, table: np.ndarray, positions: np.ndarray,
+              zero_rows: np.ndarray) -> np.ndarray:
+    """Row-wise CRC over a (k, n) uint8 array; the pass is chosen by the
+    array's shape alone."""
+    rows = np.asarray(rows, dtype=np.uint8)
+    k, n = rows.shape
+    if n > _TABLE_POSITIONS:
+        ROW_PASSES["loop"] += 1
+        return _crc_rows_loop(rows, table)
+    first = _TABLE_POSITIONS - n
+    if rows.size <= _GATHER_MAX_BYTES:
+        ROW_PASSES["gather"] += 1
+        parts = positions.reshape(-1)[rows + _POSITION_OFFSETS[first:]]
+        acc = np.bitwise_xor.reduce(parts, axis=1)
+    else:
+        ROW_PASSES["columns"] += 1
+        acc = np.zeros(k, dtype=table.dtype)
+        for i, col in enumerate(np.ascontiguousarray(rows.T)):
+            acc ^= positions[first + i].take(col)
+    return acc ^ zero_rows[n]
 
 
 # GF(2) length-shift operators (the zlib crc32_combine construction): the
@@ -131,9 +219,6 @@ def _shift_matrix(poly: int, width: int, len_bytes: int) -> tuple[int, ...]:
     return mat
 
 
-_ROW_BYTES = 64  # fold granularity of the vectorized single-buffer CRCs
-
-
 def _crc_fold(row_crcs: np.ndarray, tail: np.ndarray, poly: int, width: int,
               bytewise) -> int:
     """Fold per-row CRCs (rows of _ROW_BYTES each) + a short tail into the
@@ -151,7 +236,7 @@ def _crc_fold(row_crcs: np.ndarray, tail: np.ndarray, poly: int, width: int,
 def crc32(data: np.ndarray | bytes) -> int:
     buf = _as_u8(data)
     if buf.size < 2 * _ROW_BYTES:
-        return _crc32_bytewise(buf)
+        return int(crc32_rows(buf[None, :])[0])
     full = buf.size // _ROW_BYTES
     rows = crc32_rows(buf[:full * _ROW_BYTES].reshape(full, _ROW_BYTES))
     return _crc_fold(rows, buf[full * _ROW_BYTES:], _CRC32_POLY, 32,
@@ -161,7 +246,7 @@ def crc32(data: np.ndarray | bytes) -> int:
 def crc64(data: np.ndarray | bytes) -> int:
     buf = _as_u8(data)
     if buf.size < 2 * _ROW_BYTES:
-        return _crc64_bytewise(buf)
+        return int(crc64_rows(buf[None, :])[0])
     full = buf.size // _ROW_BYTES
     rows = crc64_rows(buf[:full * _ROW_BYTES].reshape(full, _ROW_BYTES))
     return _crc_fold(rows, buf[full * _ROW_BYTES:], _CRC64_POLY, 64,
@@ -170,11 +255,7 @@ def crc64(data: np.ndarray | bytes) -> int:
 
 def crc32_rows(rows: np.ndarray) -> np.ndarray:
     """Row-wise CRC-32 over a (k, n) uint8 array -> (k,) uint32."""
-    rows = np.asarray(rows, dtype=np.uint8)
-    crc = np.full(rows.shape[0], 0xFFFFFFFF, dtype=np.uint32)
-    for i in range(rows.shape[1]):
-        crc = _CRC32_TABLE[(crc ^ rows[:, i]) & 0xFF] ^ (crc >> np.uint32(8))
-    return crc ^ np.uint32(0xFFFFFFFF)
+    return _crc_rows(rows, _CRC32_TABLE, _CRC32_POSITIONS, _CRC32_ZERO_ROWS)
 
 
 def crc64_rows(rows: np.ndarray) -> np.ndarray:
@@ -183,12 +264,7 @@ def crc64_rows(rows: np.ndarray) -> np.ndarray:
     One table pass verifies every page's header body in a flush's open
     burst (see :func:`parse_header_chunks`) instead of k per-byte loops.
     """
-    rows = np.asarray(rows, dtype=np.uint8)
-    crc = np.full(rows.shape[0], 0xFFFFFFFFFFFFFFFF, dtype=np.uint64)
-    for i in range(rows.shape[1]):
-        crc = _CRC64_TABLE[(crc ^ rows[:, i]) & np.uint64(0xFF)] ^ (
-            crc >> np.uint64(8))
-    return crc ^ np.uint64(0xFFFFFFFFFFFFFFFF)
+    return _crc_rows(rows, _CRC64_TABLE, _CRC64_POSITIONS, _CRC64_ZERO_ROWS)
 
 
 def crc32_chunks(page_bytes: np.ndarray) -> np.ndarray:

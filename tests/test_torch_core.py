@@ -85,6 +85,93 @@ def test_crcs_bit_equal(n_bytes):
     np.testing.assert_array_equal(ecc.crc64_rows(rows), jecc.crc64_rows(rows))
 
 
+ROW_WIDTHS = [1, 8, 56, 63, 64, 65, 127, 128, 129, 200]
+
+
+def _row_count(width, count):
+    """A row count, or one on either side of the gather's row-byte limit."""
+    if count == "at_limit":
+        return ecc._GATHER_MAX_BYTES // width
+    if count == "over_limit":
+        return ecc._GATHER_MAX_BYTES // width + 1
+    return count
+
+
+def _branch(rows):
+    if rows.shape[1] > ecc._TABLE_POSITIONS:
+        return "loop"
+    return "gather" if rows.size <= ecc._GATHER_MAX_BYTES else "columns"
+
+
+@pytest.mark.parametrize("count", [1, 20, 64, "at_limit", "over_limit"])
+@pytest.mark.parametrize("width", ROW_WIDTHS)
+def test_row_crcs_bit_equal(width, count):
+    """The position-table passes against the JAX package's byte loop and
+    the per-byte oracle, row by row, in the branch the shape selects."""
+    k = _row_count(width, count)
+    rows = np.random.default_rng(width * 1000 + k).integers(
+        0, 256, (k, width)).astype(np.uint8)
+    for port, ref, oracle, dtype in (
+            (ecc.crc32_rows, jecc.crc32_rows, ecc._crc32_bytewise, np.uint32),
+            (ecc.crc64_rows, jecc.crc64_rows, ecc._crc64_bytewise, np.uint64)):
+        before = dict(ecc.ROW_PASSES)
+        got = port(rows)
+        moved = {b: ecc.ROW_PASSES[b] - before[b] for b in before}
+        assert moved == {b: int(b == _branch(rows)) for b in before}
+        assert got.dtype == dtype and got.shape == (k,)
+        np.testing.assert_array_equal(got, ref(rows))
+        np.testing.assert_array_equal(
+            got, np.array([oracle(r) for r in rows], dtype=dtype))
+
+
+@pytest.mark.parametrize("width", [0, 1, 56, 64, 127])
+def test_row_pass_branches_agree(width, monkeypatch):
+    """The gather and the column loop give the same array on the same rows,
+    and ``ROW_PASSES`` counts the one the limit selects."""
+    rows = np.random.default_rng(width).integers(
+        0, 256, (300, width)).astype(np.uint8)
+    for port in (ecc.crc32_rows, ecc.crc64_rows):
+        out = {}
+        for branch, limit in (("gather", rows.size), ("columns", -1)):
+            monkeypatch.setattr(ecc, "_GATHER_MAX_BYTES", limit)
+            before = ecc.ROW_PASSES[branch]
+            out[branch] = port(rows)
+            assert ecc.ROW_PASSES[branch] == before + 1
+        assert out["gather"].dtype == out["columns"].dtype
+        np.testing.assert_array_equal(out["gather"], out["columns"])
+
+
+@pytest.mark.parametrize("n_bytes", [0, 1, 55, 56, 100, 127])
+def test_short_buffer_crcs_take_one_gather(n_bytes):
+    data = np.random.default_rng(n_bytes).integers(
+        0, 256, n_bytes).astype(np.uint8)
+    before = ecc.ROW_PASSES["gather"]
+    got32, got64 = ecc.crc32(data), ecc.crc64(data)
+    assert ecc.ROW_PASSES["gather"] == before + 2
+    assert type(got32) is int and type(got64) is int
+    assert got32 == ecc._crc32_bytewise(data) == jecc.crc32(data)
+    assert got64 == ecc._crc64_bytewise(data) == jecc.crc64(data)
+
+
+def test_header_chunks_build_and_parse_bit_equal():
+    rng = np.random.default_rng(30)
+    stamps = rng.integers(0, 2**63, 40, dtype=np.uint64)
+    users = rng.integers(0, 2**32, (40, 5, 2), dtype=np.uint64).astype(
+        np.uint32)
+    chunks = np.stack([ecc.build_header_chunk(int(t), u)
+                       for t, u in zip(stamps, users)])
+    np.testing.assert_array_equal(chunks, np.stack([
+        jecc.build_header_chunk(int(t), u) for t, u in zip(stamps, users)]))
+    chunks[::7, 20] ^= 0x10                        # some bodies damaged
+    for a, b in zip(ecc.parse_header_chunks(chunks),
+                    jecc.parse_header_chunks(chunks)):
+        assert (a.crc, a.magic, a.timestamp_ns, a.crc_ok, a.magic_ok) == \
+            (b.crc, b.magic, b.timestamp_ns, b.crc_ok, b.magic_ok)
+        np.testing.assert_array_equal(a.user, b.user)
+    assert [ecc.parse_header_chunk(c).crc_ok for c in chunks] == \
+        [i % 7 != 0 for i in range(len(chunks))]
+
+
 @pytest.mark.parametrize("randomized", [False, True])
 @pytest.mark.parametrize("n_entries", [0, 17, 504])
 def test_page_images_bit_equal(n_entries, randomized):
