@@ -2,8 +2,10 @@
 
 ``get_config("kimi-k2-1t-a32b")`` returns the full paper-table config;
 ``reduced_config(cfg)`` shrinks it to a CPU-runnable smoke config of the
-same family (same code paths, tiny dims).  The same data as the JAX
-package's ``configs/``, copied.
+same family (same code paths, tiny dims).  ``ARCHS`` holds the same data
+as the JAX package's ``configs/``, copied.  ``SERVE_ONLY`` holds configs
+the JAX package lacks, which the port serves on one device:
+hymba-1.5b-base, Hymba at its published structure.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from .kimi_k2_1t_a32b import CONFIG as kimi_k2_1t_a32b
 from .mixtral_8x22b import CONFIG as mixtral_8x22b
 from .xlstm_350m import CONFIG as xlstm_350m
 from .hymba_1_5b import CONFIG as hymba_1_5b
+from . import hymba_1_5b_base
 
 ARCHS: dict[str, ModelConfig] = {
     c.name: c for c in [
@@ -31,14 +34,24 @@ ARCHS: dict[str, ModelConfig] = {
 }
 
 
+SERVE_ONLY: dict[str, ModelConfig] = {
+    hymba_1_5b_base.CONFIG.name: hymba_1_5b_base.CONFIG,
+}
+_REDUCED_SERVE_ONLY = {hymba_1_5b_base.CONFIG.name: hymba_1_5b_base.REDUCED}
+
+
 def get_config(name: str) -> ModelConfig:
-    if name not in ARCHS:
-        raise KeyError(f"unknown arch {name!r}; have {sorted(ARCHS)}")
-    return ARCHS[name]
+    for registry in (ARCHS, SERVE_ONLY):
+        if name in registry:
+            return registry[name]
+    raise KeyError(f"unknown arch {name!r}; have "
+                   f"{sorted(ARCHS) + sorted(SERVE_ONLY)}")
 
 
 def reduced_config(cfg: ModelConfig) -> ModelConfig:
     """Same family/code paths, laptop-sized dims for smoke tests."""
+    if cfg.name in _REDUCED_SERVE_ONLY:
+        return _REDUCED_SERVE_ONLY[cfg.name]
     kv = 4 if cfg.n_kv_heads == cfg.n_heads else 2
     upd = dict(
         n_layers=2, d_model=64, n_heads=4, n_kv_heads=kv, head_dim=16,
@@ -72,5 +85,5 @@ def shape_cells(cfg: ModelConfig) -> dict[str, InputShape | None]:
     return cells
 
 
-__all__ = ["ARCHS", "get_config", "reduced_config", "shape_cells",
+__all__ = ["ARCHS", "SERVE_ONLY", "get_config", "reduced_config", "shape_cells",
            "SHAPES", "ModelConfig", "InputShape"]

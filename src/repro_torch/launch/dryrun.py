@@ -62,7 +62,8 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor
 
-from repro_torch.configs import ARCHS, SHAPES, get_config, shape_cells
+from repro_torch.configs import (ARCHS, SERVE_ONLY, SHAPES, get_config,
+                                 shape_cells)
 from repro_torch.convert import param_tree
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.launch import specs as S
@@ -246,7 +247,13 @@ def lower_cell(cfg: ModelConfig, shape: InputShape, mesh=None,
 def run_cell(arch: str, shape_name: str, mesh_kind: str,
              variant: str = "baseline", out_dir: Path | None = None) -> dict:
     """Trace one production cell over a fake world of the mesh's size and
-    write its report to ``out_dir`` (``OUT_DIR`` by default)."""
+    write its report to ``out_dir`` (``OUT_DIR`` by default).  A config
+    the port serves on one device only (``configs.SERVE_ONLY``) is
+    refused."""
+    if arch in SERVE_ONLY:
+        raise ValueError(f"{arch}: served on one device only "
+                         "(models/hymba.py); the dry run traces the sharded "
+                         f"production cells of {sorted(ARCHS)}")
     cfg = apply_variant(get_config(arch), variant)
     cell = shape_cells(cfg)[shape_name]
     out_dir = Path(out_dir or OUT_DIR)

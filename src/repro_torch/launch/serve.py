@@ -12,6 +12,10 @@ prefill), and whisper runs through ``models.model.prefill`` and
   python -m repro_torch.launch.serve --arch qwen3-4b --full --paged
   python -m repro_torch.launch.serve --arch qwen3-4b --paged
   python -m repro_torch.launch.serve --arch qwen3-4b --paged --device cpu
+
+``--arch hymba-1.5b-base`` serves hymba at its published structure
+(``models/hymba.py``: global layers holding the whole context, meta
+tokens, k/v shared between layers); ``--full`` is its published size.
 """
 from __future__ import annotations
 

@@ -108,6 +108,12 @@ class ModelConfig:
         return self.n_experts > 0
 
     @property
+    def mamba_width(self) -> int:
+        """Channels of a hybrid block's mamba heads (u, z, the conv and the
+        state): the model width."""
+        return self.d_model
+
+    @property
     def expert_d_ff(self) -> int:
         return self.moe_d_ff or self.d_ff
 
@@ -156,6 +162,59 @@ class ModelConfig:
         active = self.n_layers * (self.top_k + self.n_shared_experts) \
             * 3 * d * self.expert_d_ff
         return total - all_experts + active
+
+
+@dataclasses.dataclass(frozen=True)
+class HymbaConfig(ModelConfig):
+    """A hybrid config at Hymba's published structure (arXiv:2411.13676
+    §2): the block of ``ModelConfig``'s hybrid family, with
+
+    - ``global_layers``: the layers that attend every earlier position; the
+      others attend within ``sliding_window``;
+    - ``meta_tokens``: learned vectors put before every sequence, which
+      every layer's attention sees (a window layer's as well as its window)
+      and its mamba heads scan first;
+    - ``kv_groups``: runs of consecutive layers of one attention kind that
+      share one k/v cache, which the run's first layer projects and the
+      others read;
+    - ``mamba_expand``: the mamba heads' channels over the model width.
+
+    Kept apart from ``ModelConfig`` so that the JAX package's configs,
+    which have none of these fields, stay field for field its own.  The
+    port serves it on one device (``models/hymba.py``)."""
+    global_layers: tuple[int, ...] = ()
+    meta_tokens: int = 1
+    kv_groups: tuple[tuple[int, ...], ...] = ()
+    mamba_expand: int = 1
+
+    def __post_init__(self):
+        super().__post_init__()
+        L = self.n_layers
+        if self.family != "hybrid" or self.sliding_window is None \
+                or self.global_attn_every or self.meta_tokens < 1:
+            raise ValueError(f"{self.name}: a hybrid config with a sliding "
+                             "window, meta tokens, and global_layers in "
+                             "place of global_attn_every")
+        if not all(0 <= i < L for i in self.global_layers):
+            raise ValueError(f"{self.name}: global layers "
+                             f"{self.global_layers} outside {L} layers")
+        seen: set = set()
+        for g in self.kv_groups:
+            kinds = {i in self.global_layers for i in g}
+            if (len(g) < 2 or list(g) != list(range(g[0], g[0] + len(g)))
+                    or len(kinds) > 1 or seen & set(g)
+                    or not 0 <= g[0] <= g[-1] < L):
+                raise ValueError(f"{self.name}: kv group {g} is not a run "
+                                 "of two or more consecutive layers of one "
+                                 "kind, apart from the other groups")
+            seen |= set(g)
+
+    @property
+    def mamba_width(self) -> int:
+        return self.mamba_expand * self.d_model
+
+    def is_global(self, lid: int) -> bool:
+        return lid in self.global_layers
 
 
 @dataclasses.dataclass(frozen=True)

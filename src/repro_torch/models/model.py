@@ -49,6 +49,11 @@ package returns new arrays):
 - ``"enc_out"`` (audio, after prefill): the encoder output (B, F, d);
 - ``"states"`` (ssm, in place of all of these): the mLSTM (C, n, m) of
   (n_rep, rep - 1, B, ...) and the sLSTM (c, n, h, m) of (n_rep, B, d).
+
+A ``HymbaConfig`` (hymba at its published structure: global layers by id,
+meta tokens, k/v shared between layers) has caches of its own kinds:
+``prefill``, ``decode_step`` and ``make_caches`` hand it to
+``models/hymba.py``, on one device; ``train_logits`` refuses it.
 """
 from __future__ import annotations
 
@@ -65,7 +70,7 @@ from repro_torch.parallel.tensor_parallel import (Axis, TensorParallel,
                                                   copy_to, gather_from,
                                                   model_axis, reduce_from,
                                                   split_axis)
-from .config import ModelConfig
+from .config import HymbaConfig, ModelConfig
 from .layers import (Attention, Mlp, Norms, Stack, _dense_init, _param,
                      apply_attention, apply_cross_attention, apply_mlp,
                      block_norm, layer_norm_nonparametric, pdtype, rms_norm,
@@ -88,8 +93,9 @@ def _xlstm_pattern(cfg: ModelConfig) -> tuple[int, int]:
 class LM(nn.Module):
     """embed (V_pad, d); head (d, V_pad) unless tied; final_norm (d,) unless
     non-parametric; the decoder ``blocks``; with an encoder the ``encoder``
-    and ``cross`` stacks; with a frontend ``frontend_proj`` (d, d).  Shapes,
-    dtypes and names follow the JAX package's parameter tree."""
+    and ``cross`` stacks; with a frontend ``frontend_proj`` (d, d); with a
+    ``HymbaConfig`` its meta tokens ``meta`` (M, d).  Shapes, dtypes and
+    names follow the JAX package's parameter tree."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -126,6 +132,8 @@ class LM(nn.Module):
                                norms=Norms(cfg, (L,), 1, device=device))
         if cfg.frontend is not None:
             self.frontend_proj = _param((d, d), cfg, device)
+        if isinstance(cfg, HymbaConfig):
+            self.meta = _param((cfg.meta_tokens, d), cfg, device)
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:
@@ -139,6 +147,8 @@ class LM(nn.Module):
             mod.reset_parameters(gen)
         if self.cfg.frontend is not None:
             _dense_init(self.frontend_proj, d, gen)
+        if isinstance(self.cfg, HymbaConfig):   # unit scale, as the
+            _dense_init(self.meta, 1, gen)      # scaled token embeddings
 
 
 def _attn_axes(cfg: ModelConfig) -> dict:
@@ -218,6 +228,8 @@ def logical_axes(cfg: ModelConfig) -> dict:
                          "norms": _norm_axes(cfg, 1)}
     if cfg.frontend is not None:
         axes["frontend_proj"] = ("embed", "embed")
+    if isinstance(cfg, HymbaConfig):
+        axes["meta"] = (None, "embed")
     return axes
 
 
@@ -518,6 +530,10 @@ def train_logits(model: LM, tokens, *, frontend_embeds=None,
     rank's vocabulary columns (B, S, V_pad / model) where the vocabulary
     is split over the model axis."""
     cfg = model.cfg
+    if isinstance(cfg, HymbaConfig):
+        raise NotImplementedError(f"{cfg.name}: the published hymba "
+                                  "structure is served only "
+                                  "(models/hymba.py)")
     s = tokens.shape[1]
     remat = cfg.remat if remat is None else remat
     table = _weight(model, "embed", tp)
@@ -557,7 +573,10 @@ def make_caches(cfg: ModelConfig, batch: int, cache_len: int,
                 device=None) -> dict:
     """Zeroed decode caches for the whole stack (the module docstring's
     layout); a sliding-window config gets a ring of min(cache_len, window)
-    slots."""
+    slots.  A ``HymbaConfig``'s are ``models/hymba.py``'s."""
+    if isinstance(cfg, HymbaConfig):
+        from . import hymba
+        return hymba.make_caches(cfg, batch, cache_len, device)
     if cfg.family == "ssm":
         return {"states": _xlstm_states(cfg, batch, device)}
     dt = pdtype(cfg)
@@ -614,8 +633,13 @@ def prefill(model: LM, tokens, cache_len: int, *, frontend_embeds=None,
     replicated normed input; where they are split by kv heads, its heads'
     k/v at every slot.  ``caches``: the zeroed caches to fill (under ``tp``
     the rank's shards, which the serve step makes from their placements);
-    made here when None."""
+    made here when None.  A ``HymbaConfig`` runs ``models/hymba.py``'s
+    prefill."""
     cfg = model.cfg
+    if isinstance(cfg, HymbaConfig):
+        from . import hymba
+        return hymba.prefill(model, tokens, cache_len, attention=attention,
+                             tp=tp)
     b, s = tokens.shape
     ax = model_axis(tp)
     table = _weight(model, "embed", tp)
@@ -685,8 +709,12 @@ def decode_step(model: LM, token, caches: dict, index: int, *,
     place (an ssm config's states are new tensors).  ``tp``: as for
     :func:`prefill`, the caches the rank's shards (split along their slots,
     they are attended by slices); ``index`` is a position in the whole
-    cache."""
+    cache.  A ``HymbaConfig`` runs ``models/hymba.py``'s decode step."""
     cfg = model.cfg
+    if isinstance(cfg, HymbaConfig):
+        from . import hymba
+        return hymba.decode_step(model, token, caches, index,
+                                 attention=attention, tp=tp)
     ax = model_axis(tp)
     table = _weight(model, "embed", tp)
     x = embed_tokens(model, token, table=table, tp=ax)

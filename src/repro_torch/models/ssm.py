@@ -45,47 +45,81 @@ NEG_INF = -1e30       # the stabiliser's start: exp(x - NEG_INF) never runs
 # =========================================================== selective SSM
 
 class Mamba(nn.Module):
-    """in_proj (L, d, 2d), conv_w (L, K, d), x_proj (L, d, 2N + 1),
-    out_proj (L, d, d) in the parameter dtype; a_log (L, d, N) and d_skip
-    (L, d) in float32."""
+    """in_proj (L, d, 2e), conv_w (L, K, e), x_proj (L, e, 2N + 1),
+    out_proj (L, e, d) in the parameter dtype; a_log (L, e, N) and d_skip
+    (L, e) in float32; e is ``cfg.mamba_width``, the model width d unless
+    the config widens it."""
 
     def __init__(self, cfg: ModelConfig, n_layers: int, device=None):
         super().__init__()
         self.cfg = cfg
-        L, d, n = (n_layers,), cfg.d_model, cfg.ssm_state
-        self.in_proj = _param(L + (d, 2 * d), cfg, device)
-        self.conv_w = _param(L + (cfg.ssm_conv, d), cfg, device)
-        self.x_proj = _param(L + (d, 2 * n + 1), cfg, device)
-        self.a_log = _param(L + (d, n), cfg, device, torch.float32)
-        self.d_skip = _param(L + (d,), cfg, device, torch.float32)
-        self.out_proj = _param(L + (d, d), cfg, device)
+        L, d, e, n = (n_layers,), cfg.d_model, cfg.mamba_width, cfg.ssm_state
+        self.in_proj = _param(L + (d, 2 * e), cfg, device)
+        self.conv_w = _param(L + (cfg.ssm_conv, e), cfg, device)
+        self.x_proj = _param(L + (e, 2 * n + 1), cfg, device)
+        self.a_log = _param(L + (e, n), cfg, device, torch.float32)
+        self.d_skip = _param(L + (e,), cfg, device, torch.float32)
+        self.out_proj = _param(L + (e, d), cfg, device)
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:
         cfg = self.cfg
         _dense_init(self.in_proj, cfg.d_model, gen)
         _dense_init(self.conv_w, cfg.ssm_conv, gen)
-        _dense_init(self.x_proj, cfg.d_model, gen)
+        _dense_init(self.x_proj, cfg.mamba_width, gen)
         self.a_log.copy_(torch.log(torch.arange(
             1, cfg.ssm_state + 1, dtype=torch.float32,
             device=self.a_log.device)).expand(self.a_log.shape))
         self.d_skip.fill_(1.0)
-        _dense_init(self.out_proj, cfg.d_model, gen)
+        _dense_init(self.out_proj, cfg.mamba_width, gen)
+
+
+# Positions a serving scan takes at once (:func:`_scan_chunks`).
+SCAN_CHUNK = 16
 
 
 def _mamba_scan(u, delta, a, bmat, cmat, d_skip, h0):
     """u, delta (B, S, D); a (D, N); bmat, cmat (B, S, N); h0 (B, D, N).
 
     h_t = exp(delta a) h_{t-1} + delta * b_t * u_t ;  y_t = c_t . h_t
-    Returns (y (B, S, D), h_final (B, D, N))."""
-    decay = torch.exp(torch.einsum("bsd,dn->bsdn", delta, a))
+    Returns (y (B, S, D), h_final (B, D, N)).  Under autograd one step a
+    position, whose backward holds O(S) states; without it (serving) a
+    chunk of positions at a time (:func:`_scan_chunks`): the same sums,
+    an order of magnitude fewer launches."""
+    log_decay = torch.einsum("bsd,dn->bsdn", delta, a)      # <= 0
     drive = torch.einsum("bsd,bsn->bsdn", delta * u, bmat)
-    h, hs = h0, []
-    for t in range(u.shape[1]):
-        h = decay[:, t] * h + drive[:, t]
-        hs.append(h)
-    y = torch.einsum("bsdn,bsn->bsd", torch.stack(hs, dim=1), cmat)
-    return y + u * d_skip, h
+    if torch.is_grad_enabled():
+        h, hs = h0, []
+        # the positions' views made in one call, not one indexing a step
+        for dec, drv in zip(torch.exp(log_decay).unbind(1), drive.unbind(1)):
+            h = dec * h + drv
+            hs.append(h)
+        hs = torch.stack(hs, dim=1)
+    else:
+        hs = _scan_chunks(log_decay, drive, h0)
+    y = torch.einsum("bsdn,bsn->bsd", hs, cmat)
+    return y + u * d_skip, hs[:, -1]
+
+
+def _scan_chunks(log_decay, drive, h0):
+    """Every state of the scan (B, S, D, N), SCAN_CHUNK positions at a time
+    from the state before them: h_t = exp(L_t) h + sum over tau <= t of
+    exp(L_t - L_tau) drive_tau, L the chunk's running sum of the log
+    decays, so that no exponent is above 0."""
+    out = torch.empty_like(drive)
+    h = h0
+    for i in range(0, drive.shape[1], SCAN_CHUNK):
+        run = log_decay[:, i:i + SCAN_CHUNK].cumsum(1)      # (B, c, D, N)
+        c = run.shape[1]
+        later = torch.ones((c, c), dtype=torch.bool,
+                           device=run.device).tril()[..., None, None]
+        weights = torch.exp((run[:, :, None] - run[:, None]).masked_fill(
+            ~later, float("-inf")))                          # (B, t, tau, ..)
+        hs = (weights * drive[:, None, i:i + c]).sum(2) + \
+            torch.exp(run) * h[:, None]
+        out[:, i:i + c] = hs
+        h = hs[:, -1]
+    return out
 
 
 def _mamba_weights(p: dict, d: int, tp: Axis | None):
@@ -106,8 +140,9 @@ def _mamba_weights(p: dict, d: int, tp: Axis | None):
 def apply_mamba(p: dict, x, cfg: ModelConfig, *, state=None,
                 conv_state=None, single_step: bool = False,
                 tp: Axis | None = None):
-    """x (B, S, d).  Returns (y, (ssm_state, conv_state)); state (B, d, N)
-    float32, conv_state (B, K - 1, d) the conv's tail in x's dtype.
+    """x (B, S, d).  Returns (y, (ssm_state, conv_state)); state (B, e, N)
+    float32, conv_state (B, K - 1, e) the conv's tail in x's dtype, e the
+    mamba width (``in_proj``'s columns over two).
     ``tp``: the model axis; ``p`` then holds the rank's channels (the
     module docstring), and so do the state and the conv tail."""
     b, s, _ = x.shape

@@ -23,6 +23,23 @@ here with a clear error:
 - The engine passes no frontend embeddings, and an audio config's encoder
   needs its frames: JAX fails in prefill, the port refuses the config.
   Serve whisper through ``prefill`` and ``decode_step``.
+
+A ``HymbaConfig`` (hymba-1.5b-base: global layers that hold the whole
+context, window rings, meta tokens, k/v shared between layers) is served
+through ``models/hymba.py``: the engine computes the meta tokens' state
+once, from the model's weights as they are when it is built, and each
+prefill starts from it.  Its paged mirror pages each global-layer cache's
+k/v (slot = position, never a ring), so no position is refused; a prompt
+is paged page by page (``SimPagedKVCache.write_tokens``: one lookup a
+page), where the other configs page it token by token as the JAX package's
+engine does.
+
+``on_token(req_id, token, logits)``, when given, is called as each token
+becomes readable on the host (a prefill's first token and every decoded
+one).  Spans (``repro_torch.spans``): ``serve.admit`` (a request's
+prefill and its prompt's mirror), ``serve.decode`` (one slot's decode
+step and its mirror) and ``serve.mirror`` (one token's, or a prompt's,
+block-table lookups, allocations and programs).
 """
 from __future__ import annotations
 
@@ -32,6 +49,9 @@ from collections import deque
 
 import torch
 
+from repro_torch import spans
+from repro_torch.models import hymba
+from repro_torch.models.config import HymbaConfig
 from repro_torch.models.model import LM, decode_step, prefill
 
 
@@ -62,13 +82,15 @@ class _Slot:
 
 class ServeEngine:
     """``prefills`` and ``decodes`` count the model calls, each of which runs
-    one attention per layer; ``prefill_s`` and ``decode_s`` sum their host
-    clock times, argmax included, and ``run_s`` is the time of ``run``.
+    one attention per layer; ``prefill_tokens`` counts the prompts'
+    tokens and ``mirrored`` the tokens paged; ``prefill_s`` and
+    ``decode_s`` sum their host clock times, argmax included, and ``run_s``
+    is the time of ``run``.
     Greedy decoding reads every argmax back to the host, so each of these
     clocks stops after the device work it times has finished."""
 
     def __init__(self, model: LM, *, max_slots: int = 4,
-                 cache_len: int = 256, paged_cache=None):
+                 cache_len: int = 256, paged_cache=None, on_token=None):
         cfg = model.cfg
         if cfg.encoder_layers:
             raise ValueError(f"{cfg.name}: the engine passes no frontend "
@@ -82,12 +104,17 @@ class ServeEngine:
         self.max_slots = max_slots
         self.cache_len = cache_len
         self.paged = paged_cache
+        self.on_token = on_token
+        self.meta = hymba.meta_state(model) \
+            if isinstance(cfg, HymbaConfig) else None
         self.queue: deque[Request] = deque()
         self.slots: dict[int, _Slot] = {}
         self.completed: list[Completion] = []
         self.steps = 0
         self.prefills = 0
         self.decodes = 0
+        self.prefill_tokens = 0
+        self.mirrored = 0
         self.prefill_s = 0.0
         self.decode_s = 0.0
         self.run_s = 0.0
@@ -99,39 +126,78 @@ class ServeEngine:
     def _admit(self) -> None:
         while self.queue and len(self.slots) < self.max_slots:
             req = self.queue.popleft()
+            s = spans.ON and spans.begin("serve.admit")
             t0 = time.perf_counter()
             tokens = torch.tensor([req.prompt], dtype=torch.int64,
                                   device=self.device)
-            logits, caches = prefill(self.model, tokens, self.cache_len)
+            if self.meta is None:
+                logits, caches = prefill(self.model, tokens, self.cache_len)
+            else:
+                logits, caches = hymba.prefill(self.model, tokens,
+                                               self.cache_len, meta=self.meta)
             first = int(torch.argmax(logits, dim=-1)[0])
             dt = time.perf_counter() - t0
             self.prefills += 1
+            self.prefill_tokens += len(req.prompt)
             self.prefill_s += dt
+            if self.on_token is not None:
+                self.on_token(req.req_id, first, logits)
             slot = _Slot(request=req, caches=caches,
                          position=len(req.prompt), generated=[first],
                          t_prefill=dt)
             if self.paged is not None:
                 self._mirror_prompt_kv(req, caches)
             self.slots[req.req_id] = slot
+            if s:
+                spans.end(s)
 
     def _mirror_prompt_kv(self, req: Request, caches: dict) -> None:
-        """Mirror prefilled KV into the SiM-paged pool (per token)."""
-        for pos in range(len(req.prompt)):
-            self._mirror(req.req_id, caches, pos, len(req.prompt))
+        """Mirror prefilled KV into the SiM-paged pool (per token; a
+        ``HymbaConfig``'s per page)."""
+        n = len(req.prompt)
+        if self.meta is None:
+            for pos in range(n):
+                self._mirror(req.req_id, caches, pos, n)
+            return
+        s = spans.ON and spans.begin("serve.mirror")
+        ck, cv = caches["global"]
+        slots = self._global_slot(ck, torch.arange(n, device=ck.device))
+        self.paged.write_tokens(req.req_id, 0, ck[:, 0, slots],
+                                cv[:, 0, slots])
+        self.mirrored += n
+        if s:
+            spans.end(s)
+
+    def _global_slot(self, ck, pos):
+        """The slot of a ``HymbaConfig``'s global cache that holds text
+        position ``pos``: meta tokens + ``pos``.  The cache never wraps; on
+        a ring (``hymba.RING_KINDS``) the modulo gives what a slot holds."""
+        m = self.cfg.meta_tokens
+        return m + pos % (ck.shape[2] - m)
 
     def _mirror(self, req_id: int, caches: dict, pos: int,
                 length: int) -> None:
         """Page position ``pos``'s k/v from cache slot ``pos``, of a cache
-        that holds the sequence's first ``length`` positions."""
-        ck, cv = caches["kv"]
-        c = ck.shape[2]
-        if pos >= c or length > pos + c:
-            raise IndexError(
-                f"{self.cfg.name}: slot {pos} of the {c}-slot ring cache "
-                f"does not hold position {pos} (the ring holds positions "
-                f"{max(length - c, 0)}..{length - 1}, position p in slot "
-                "p % C); the paged mirror reads slot = position")
-        self.paged.write_token(req_id, pos, ck[:, 0, pos], cv[:, 0, pos])
+        that holds the sequence's first ``length`` positions (a
+        ``HymbaConfig``'s global caches: slot meta tokens + ``pos``)."""
+        s = spans.ON and spans.begin("serve.mirror")
+        if self.meta is not None:
+            ck, cv = caches["global"]
+            slot = self._global_slot(ck, pos)
+        else:
+            ck, cv = caches["kv"]
+            c = ck.shape[2]
+            if pos >= c or length > pos + c:
+                raise IndexError(
+                    f"{self.cfg.name}: slot {pos} of the {c}-slot ring cache "
+                    f"does not hold position {pos} (the ring holds positions "
+                    f"{max(length - c, 0)}..{length - 1}, position p in slot "
+                    "p % C); the paged mirror reads slot = position")
+            slot = pos
+        self.paged.write_token(req_id, pos, ck[:, 0, slot], cv[:, 0, slot])
+        self.mirrored += 1
+        if s:
+            spans.end(s)
 
     def _retire(self, req_id: int, decode_s: float) -> None:
         slot = self.slots.pop(req_id)
@@ -147,6 +213,7 @@ class ServeEngine:
         done = []
         t0 = time.perf_counter()
         for req_id, slot in self.slots.items():
+            s = spans.ON and spans.begin("serve.decode")
             t_dec = time.perf_counter()
             tok = torch.tensor([[slot.generated[-1]]], dtype=torch.int64,
                                device=self.device)
@@ -157,6 +224,8 @@ class ServeEngine:
             self.decodes += 1
             self.decode_s += time.perf_counter() - t_dec
             slot.generated.append(nxt)
+            if self.on_token is not None:
+                self.on_token(req_id, nxt, logits)
             if self.paged is not None:
                 self._mirror(req_id, slot.caches, slot.position,
                              slot.position + 1)
@@ -166,6 +235,8 @@ class ServeEngine:
                     or (req.eos_token is not None
                         and nxt == req.eos_token)):
                 done.append(req_id)
+            if s:
+                spans.end(s)
         dt = time.perf_counter() - t0
         for rid in done:
             self._retire(rid, dt)

@@ -21,6 +21,9 @@ placed by ``CACHE_AXES``), computed on each rank's local shards:
 
 The outputs are DTensors: the logits placed over (batch, vocab), the
 tokens over batch, the caches in their placements.
+
+A ``HymbaConfig`` (hymba at its published structure) is served on one
+device only: the sharded steps refuse it.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.launch.specs import cache_shardings
-from repro_torch.models.config import InputShape
+from repro_torch.models.config import HymbaConfig, InputShape
 from repro_torch.models.model import LM, decode_step, make_caches, prefill
 from repro_torch.models.ssm import NEG_INF
 from repro_torch.parallel.tensor_parallel import (TensorParallel,
@@ -40,6 +43,10 @@ from repro_torch.train.train_step import local_parameters
 
 def _mesh(model: LM):
     p = model.embed
+    if isinstance(p, DTensor) and isinstance(model.cfg, HymbaConfig):
+        raise NotImplementedError(
+            f"{model.cfg.name}: the published hymba structure is served on "
+            "one device; the sharded serve step does not run it")
     return p.device_mesh if isinstance(p, DTensor) else None
 
 
@@ -63,6 +70,10 @@ def sharded_caches(model: LM, mesh, global_batch: int, cache_len: int,
     by ``launch.specs.cache_shardings`` (the JAX cache layout): each rank
     allocates only its own shard."""
     cfg = model.cfg
+    if isinstance(cfg, HymbaConfig):
+        raise NotImplementedError(
+            f"{cfg.name}: the published hymba structure is served on one "
+            "device; it has no sharded caches")
     whole = make_caches(cfg, global_batch, cache_len, device="meta")
     placements = cache_shardings(cfg, InputShape(
         "serve", "decode", cache_len, global_batch), mesh, whole)

@@ -1,4 +1,5 @@
-"""Spans of the port's SiM path: where a replay's host time goes.
+"""Spans of the port's SiM path and LM serving path: where a replay's or a
+served token's host time goes.
 
 A span is a named stretch of host time on ``time.perf_counter_ns()``: its
 start and end, the span it opened inside (its parent, kept by a stack) and,
@@ -46,7 +47,13 @@ The sites, by layer:
 * chip model: ``chip.program`` (``SimChip.program_entries``) with
   ``chip.ecc`` (header and chunk parities) and ``chip.randomize``;
 * copies and kernels: ``copy.h2d`` and ``copy.d2h`` (``kernels/layout.py``),
-  ``kernel.launch`` (``kernels/native.py``).
+  ``kernel.launch`` (``kernels/native.py``);
+* the LM serving path (``serve/batching.py``): ``serve.admit`` (a request's
+  prefill and its prompt's mirror), ``serve.decode`` (one slot's decode
+  step), ``serve.mirror`` (one token's block-table lookup, allocation and
+  program, whose page programs run ``chip.program``); and in the published
+  hymba model (``models/hymba.py``) each layer's ``model.attn.global`` or
+  ``model.attn.window`` and ``model.mamba``.
 
 The rest of the module reads records against a device trace on another
 clock, by the kernels the ``kernel.launch`` spans issued:
