@@ -12,7 +12,11 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    times per launch for both beside the launch floor (an empty kernel),
    the kernel's bound at the timed shapes and, for attention, PyTorch's
    ``scaled_dot_product_attention`` in its fastest form for each case as
-   the library yardstick (timed only; the port never calls it).
+   the library yardstick (timed only; the port never calls it).  The
+   mamba heads' ``mamba_conv`` and ``mamba_scan`` at hymba-1.5b-base's
+   widths (B 1 and 2, S 1 to 6,144): the conv and its tail bit for bit,
+   the state within 1e-5, a bf16 output by the ulp rule of
+   ``MAMBA_Y_EXACT``; timed at a decode step, S 1,024 and 6,144.
    ``sim_search``, ``sim_lookup`` and ``sim_gather`` are also checked
    reading their pages in place from an arena of the replay's size
    (32,768 rows, 128 MiB, over the 50 MB L2), and timed cold there, 64
@@ -141,7 +145,9 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    default, reduced, on the card (whisper refused: the engine passes no
    frames).  Every request completes; ``flash_attention`` launches
    exactly once an attention (``n_layers`` a prefill and a decode step;
-   whisper 72 a prefill, 48 a decode step) and nothing else launches.  A
+   whisper 72 a prefill, 48 a decode step), ``mamba_conv`` and
+   ``mamba_scan`` once a hymba layer a prefill and a decode step, and
+   nothing else launches.  A
    prefill and teacher-forced decode steps run again through the kernel
    and through ``plain_attention`` (an MoE's routing pinned to the kernel
    run's): every attention call of the kernel run within phase 2's bound
@@ -189,7 +195,8 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    at full width with 2 layers in float32, a prefill and 4 decode steps
    fed the same tokens, against the plain ``prefill`` and ``decode_step``
    from the same seed: logits and every cache leaf within 1e-5, one
-   ``flash_attention`` launch a layer a step and nothing else.  (b) Rank 0
+   ``flash_attention`` launch a layer a step (and for hymba one
+   ``mamba_conv`` and one ``mamba_scan``) and nothing else.  (b) Rank 0
    of the single-pod 16 x 16 mesh over ``fake``: qwen3-4b and hymba-1.5b
    ``decode_32k`` at full width and depth (8 batch rows, 2,048 and 64
    cache slots), traced by ``lower_cell`` and run on the card under the
@@ -279,6 +286,10 @@ from repro_torch.kernels import native  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     flash_attention)
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.mamba_scan.ops import (mamba_conv,  # noqa: E402
+                                                mamba_scan)
+from repro_torch.kernels.mamba_scan.ref import (causal_conv_ref,  # noqa: E402
+                                               selective_scan_ref)
 from repro_torch.kernels.layout import (planes_to_chunk_words,  # noqa: E402
                                         tensor_to_words, words_to_tensor)
 from repro_torch.kernels.sim_fused.ops import (sim_fused,  # noqa: E402
@@ -365,6 +376,9 @@ KERNELS = {
     "flash_attention": (
         f"{SRC}/flash_attention.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:31"),
+    # no Pallas kernel: the JAX package's mamba heads run jax.lax.scan
+    "mamba_conv": (f"{SRC}/mamba_scan.cu", "src/repro/models/ssm.py:69"),
+    "mamba_scan": (f"{SRC}/mamba_scan.cu", "src/repro/models/ssm.py:46"),
 }
 REPLAY_KERNELS = ("sim_search", "sim_gather", "sim_lookup", "sim_plan")
 INDEX_KERNELS = ("sim_lookup", "sim_plan", "sim_gather", "sim_search")
@@ -1198,10 +1212,159 @@ def attention_lse_checks(dev) -> None:
             f"({by})")
 
 
-def bound(ops, nbytes):
-    t_ops, t_bytes = ops / INT32_OPS, nbytes / HBM_BW
+def bound(ops, nbytes, rate=INT32_OPS):
+    t_ops, t_bytes = ops / rate, nbytes / HBM_BW
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+# The mamba heads' kernels at hymba-1.5b-base's widths (e 3,200, N 16,
+# K 4, bf16): checked at B 1 and 2 over S 1, 16, 17 and 1,024, and timed
+# at B 1 over MAMBA_TIMED: a decode step, chat-long's longest prompt and
+# its long sessions' context.  The state is float32 and updated as the
+# plain version updates it, so it stays within MAMBA_STATE_TOL relative;
+# y's c . h sum runs in another order, so a bf16 output may round an ulp
+# apart, which the gate's product scales and rounds again: at least
+# MAMBA_Y_EXACT of the outputs bit for bit, the rest within
+# MAMBA_Y_ULPS ulps or, where the sum cancels to near 0, within
+# MAMBA_Y_NEAR of the largest output (tests/test_torch_gpu.py's rule).
+MAMBA_ARCH = "hymba-1.5b-base"
+MAMBA_CHECKED = ((1, 1), (1, 16), (1, 17), (1, 1024), (2, 1), (2, 17),
+                 (2, 1024))
+MAMBA_TIMED = (1, 1024, 6144)
+MAMBA_STATE_TOL = 1e-5
+MAMBA_Y_EXACT, MAMBA_Y_ULPS, MAMBA_Y_NEAR = 0.999, 3, 1e-6
+
+
+def mamba_inputs(dev, cfg, b, s, seed):
+    """xz, a nonzero conv tail, conv_w, proj, a_log, d_skip and a nonzero
+    state on the card at ``cfg``'s widths, in its dtype."""
+    e, n, k = cfg.mamba_width, cfg.ssm_state, cfg.ssm_conv
+    dt = getattr(torch, cfg.dtype)
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, device=dev, generator=g)
+                * scale).to(dtype)
+    return dict(xz=randn(b, s, 2 * e, dtype=dt),
+                conv_tail=randn(b, k - 1, e, dtype=dt),
+                conv_w=randn(k, e, scale=0.5, dtype=dt),
+                proj=randn(b, s, 2 * n + 1, dtype=dt),
+                a_log=randn(e, n, scale=0.5), d_skip=randn(e),
+                state=randn(b, e, n))
+
+
+def mamba_plain(c):
+    """ref.py's conv and scan on ``mamba_inputs``: (u, tail, y, state)."""
+    e = c["conv_w"].shape[1]
+    u, tail = causal_conv_ref(c["xz"][..., :e], c["conv_tail"], c["conv_w"])
+    y, h = selective_scan_ref(u, c["xz"][..., e:], c["proj"].float(),
+                              c["a_log"], c["d_skip"], c["state"])
+    return u, tail, y, h
+
+
+def mamba_bounds(b, s, e, n, k, esize):
+    """The conv's and the scan's (operations, bytes).  The conv: per
+    (position, channel) K products and sums and the SiLU (4); it reads u,
+    the tail and the taps and writes y and the tail.  The scan: per
+    (position, channel, state) delta a, its exp, the decay's product, the
+    drive's product with b, the sum, c h and a step of c . h's sum (7); per
+    (position, channel) delta u, the skip's product and sum, silu(z) (4)
+    and the gate (9); it reads proj, u, z, a_log, d_skip and the state and
+    writes y and the state."""
+    conv = (b * s * e * (2 * k + 4),
+            (2 * b * s * e + 2 * b * (k - 1) * e + k * e) * esize)
+    scan = (b * s * e * (7 * n + 9),
+            b * s * (2 * n + 1) * esize + 3 * b * s * e * esize
+            + e * n * 4 + e * 4 + 2 * b * e * n * 4)
+    return conv, scan
+
+
+def bf16_ulps(got, want):
+    """Each bf16 output's distance from the plain version's, in ulps of the
+    plain value (2^(e - 8) for a value of binade 2^(e - 1))."""
+    got, want = got.float(), want.float()
+    ulp = torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8)
+    return (got - want).abs() / ulp.clamp_min(2.0 ** -133)
+
+
+def mamba_checks(dev, floor_ms) -> dict:
+    """``mamba_conv`` and ``mamba_scan`` against ref.py on the card at
+    MAMBA_CHECKED and MAMBA_TIMED (the module's constants above), a launch
+    each a call; device times of each kernel and of the plain version (the
+    conv and the scan together) beside each kernel's bound (its float32
+    operations over F32_FLOPS, its bytes over HBM_BW) at MAMBA_TIMED.  The
+    rows hold the decode step's (B 1, S 1) numbers and each timed
+    length's."""
+    cfg = get_config(MAMBA_ARCH)
+    e, n, k = cfg.mamba_width, cfg.ssm_state, cfg.ssm_conv
+    esize = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    y_err = state_err = 0.0
+    for i, (b, s) in enumerate(MAMBA_CHECKED
+                               + tuple((1, s) for s in MAMBA_TIMED)):
+        c = mamba_inputs(dev, cfg, b, s, 100 + i)
+        u_ref, tail_ref, y_ref, h_ref = mamba_plain(c)
+        tail, state = c["conv_tail"].clone(), c["state"].clone()
+        before = dict(native.LAUNCHES)
+        u, _ = mamba_conv(c["xz"], tail, c["conv_w"])
+        y, _ = mamba_scan(c["xz"], u, c["proj"], c["a_log"], c["d_skip"],
+                          state)
+        torch.cuda.synchronize()
+        label = f"mamba kernels [B={b}, S={s}]"
+        if native.LAUNCHES["mamba_conv"] != before["mamba_conv"] + 1 or \
+                native.LAUNCHES["mamba_scan"] != before["mamba_scan"] + 1:
+            raise AssertionError(f"{label}: not one launch each")
+        if not (torch.equal(u, u_ref) and torch.equal(tail, tail_ref)):
+            raise AssertionError(f"{label}: the conv differs from ref.py")
+        err = float((state - h_ref).norm() / h_ref.norm())
+        ulps = bf16_ulps(y, y_ref)
+        near = (y.float() - y_ref.float()).abs() <= \
+            MAMBA_Y_NEAR * y_ref.float().abs().max()
+        exact = float((ulps == 0).float().mean())
+        if err >= MAMBA_STATE_TOL or exact < MAMBA_Y_EXACT or \
+                not bool(((ulps <= MAMBA_Y_ULPS) | near).all()):
+            raise AssertionError(
+                f"{label}: state {err:.3e} from ref.py (tol "
+                f"{MAMBA_STATE_TOL}), y {exact:.5f} bit for bit, "
+                f"{float(ulps[~near].max()) if (~near).any() else 0} ulps")
+        state_err = max(state_err, err)
+        y_err = max(y_err, float((y.float() - y_ref.float()).abs().max()))
+    log(f"mamba kernels at {MAMBA_ARCH}'s widths (e={e}, N={n}, K={k}, "
+        f"{cfg.dtype}), B x S in {MAMBA_CHECKED} and B=1 x S in "
+        f"{MAMBA_TIMED}: conv and tail bit for bit, state at most "
+        f"{state_err:.3e} relative from ref.py, y at most {y_err:.3e} "
+        f"(ulp rule)")
+    rows = {"mamba_conv": dict(max_abs_err=0, lengths={}),
+            "mamba_scan": dict(max_abs_err=y_err, lengths={})}
+    for s in MAMBA_TIMED:
+        c = mamba_inputs(dev, cfg, 1, s, s)
+        u, _ = mamba_conv(c["xz"], c["conv_tail"].clone(), c["conv_w"])
+        iters = 200 if s == 1 else max(10, 20_000 // s)
+        times = dict(
+            mamba_conv=device_ms(lambda: mamba_conv(
+                c["xz"], c["conv_tail"], c["conv_w"]), iters),
+            mamba_scan=device_ms(lambda: mamba_scan(
+                c["xz"], u, c["proj"], c["a_log"], c["d_skip"],
+                c["state"]), iters))
+        plain_ms = device_ms(lambda: mamba_plain(c), 20 if s == 1 else 2)
+        bounds = dict(zip(("mamba_conv", "mamba_scan"), (
+            bound(*b, rate=F32_FLOPS)
+            for b in mamba_bounds(1, s, e, n, k, esize))))
+        for name, r in rows.items():
+            r["lengths"][s] = dict(ms=times[name], plain_ms=plain_ms,
+                                   bound_ms=bounds[name][0],
+                                   bound_by=bounds[name][1])
+            if s == 1:
+                r.update(ms=times[name], plain_ms=plain_ms,
+                         bound=bounds[name],
+                         shape=f"decode step: B=1, S=1, e={e}, N={n}, K={k}")
+        log(f"kernel mamba_conv, mamba_scan [B=1, S={s}]: "
+            f"{times['mamba_conv']:.6f} and {times['mamba_scan']:.6f} "
+            f"ms/launch ({floor_ms:.6f} the launch floor), bounds "
+            f"{bounds['mamba_conv'][0]:.6f} ({bounds['mamba_conv'][1]}) and "
+            f"{bounds['mamba_scan'][0]:.6f} ms ({bounds['mamba_scan'][1]}); "
+            f"plain (ref.py's conv and scan) {plain_ms:.6f} ms")
+    return rows
 
 
 def kernel_checks(dev) -> dict:
@@ -1386,6 +1549,7 @@ def kernel_checks(dev) -> dict:
         f"({r['ms'] - floor_ms:.6f} above the launch floor), "
         f"plain {r['plain_ms']:.6f} ms, library {r['library_ms']:.6f} ms, "
         f"bound {r['bound'][0]:.6f} ms ({r['bound'][1]})")
+    rows.update(mamba_checks(dev, floor_ms))
     return rows
 
 
@@ -3537,22 +3701,29 @@ SSM_TOL = 2e-4
 RING_K_TOL, RING_K_OTHER = 2e-2, 0.5
 
 
-def family_launches(cfg, prefills, decodes) -> int:
-    """flash_attention launches of a run: one a decoder layer a prefill and
-    a decode step; whisper adds a cross-attention a layer and, in prefill,
-    an encoder layer each (72 and 48 at full depth); xlstm has none."""
+def family_launches(cfg, prefills, decodes) -> dict:
+    """The kernels' launches of a run: ``flash_attention`` once a decoder
+    layer a prefill and a decode step (whisper adds a cross-attention a
+    layer and, in prefill, an encoder layer each: 72 and 48 at full depth;
+    xlstm has none), and where the layers have mamba heads ``mamba_conv``
+    and ``mamba_scan`` as often; no other kernel."""
+    want = dict.fromkeys(native.LAUNCHES, 0)
     if cfg.family == "ssm":
-        return 0
+        return want
     if cfg.encoder_layers:
-        return (prefills * (2 * cfg.n_layers + cfg.encoder_layers)
-                + decodes * 2 * cfg.n_layers)
-    return cfg.n_layers * (prefills + decodes)
+        want["flash_attention"] = (
+            prefills * (2 * cfg.n_layers + cfg.encoder_layers)
+            + decodes * 2 * cfg.n_layers)
+        return want
+    want["flash_attention"] = cfg.n_layers * (prefills + decodes)
+    if cfg.family == "hybrid":
+        want["mamba_conv"] = want["mamba_scan"] = want["flash_attention"]
+    return want
 
 
 def check_family_launches(label, grew, want) -> None:
-    if grew["flash_attention"] != want or sum(grew.values()) != want:
-        raise AssertionError(f"{label}: launches {grew}, expected {want} "
-                             "flash_attention and nothing else")
+    if grew != want:
+        raise AssertionError(f"{label}: launches {grew}, expected {want}")
 
 
 def rel_l2(got, want) -> float:
@@ -3930,7 +4101,7 @@ def ssm_path(dev) -> dict:
     engine_report(f"serve {SSM_ARCH} (full)", cfg, engine, completions,
                   wall_s, grew)
     check_completed(SSM_ARCH, reqs, completions)
-    check_family_launches(SSM_ARCH, grew, 0)
+    check_family_launches(SSM_ARCH, grew, family_launches(cfg, 0, 0))
     del engine, completions
     start_run()
     model = init_model(dataclasses.replace(cfg, dtype="float32"), seed=0,
@@ -4396,8 +4567,7 @@ def nccl_serve_world_of_one_path(dev) -> dict:
     one, decode merging its one partial softmax), against the plain
     ``prefill`` and ``decode_step`` from the same seed, fed the same
     tokens: logits and every cache leaf within SERVE_TP_TOL.  The launch
-    counts are the sharded runs': one ``flash_attention`` launch a layer a
-    prefill and a decode step, nothing else."""
+    counts are the sharded runs': ``family_launches``."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.parallel.sharding import (batch_sharding, distribute,
@@ -4451,11 +4621,8 @@ def nccl_serve_world_of_one_path(dev) -> dict:
             if max(errs) >= SERVE_TP_TOL:
                 raise AssertionError(f"serve world of one {arch}: logits and "
                                      f"caches {errs} apart")
-            n_launch = cfg.n_layers * (1 + SERVE_TP_STEPS)
-            if grew["flash_attention"] != n_launch or \
-                    sum(grew.values()) != n_launch:
-                raise AssertionError(f"serve world of one {arch}: launches "
-                                     f"{grew}, expected {n_launch}")
+            check_family_launches(f"serve world of one {arch}", grew,
+                                  family_launches(cfg, 1, SERVE_TP_STEPS))
             add_launches(total, grew)
             log(f"sharded serve, a world of one over {dist.get_backend()} "
                 f"({arch} full width, {SERVE_TP_LAYERS} layers, float32, "
@@ -4518,9 +4685,7 @@ def fake_rank_serve_path(arch, shape_name, smi) -> dict:
     if abs(card_peak - traced.peak_bytes) > PEAK_TOL * traced.peak_bytes:
         raise AssertionError(f"{label}: traced peak {traced.peak_bytes}, "
                              f"the allocator's {card_peak}")
-    if counted["flash_attention"] != cfg.n_layers or \
-            sum(counted.values()) != cfg.n_layers:
-        raise AssertionError(f"{label}: launches {counted}")
+    check_family_launches(label, counted, family_launches(cfg, 0, 1))
     step_s = sorted(times)[len(times) // 2]
     device_bound = max(rl.compute_s, rl.memory_s)
     if step_s < device_bound:
@@ -4737,7 +4902,8 @@ def main(argv=None) -> int:
          "replaces": KERNELS[k][1], "launches": launches[k],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-         "bound_by": r["bound"][1], "library_ms": r.get("library_ms")}
+         "bound_by": r["bound"][1], "library_ms": r.get("library_ms"),
+         **({"lengths": r["lengths"]} if "lengths" in r else {})}
         for k, r in rows.items()]}), flush=True)
     # 14. The card, then the result.
     print(smi, flush=True)

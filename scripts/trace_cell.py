@@ -13,6 +13,8 @@ runs.  Prints, as the last line, JSON with the run's result line and:
 * ``copies``: ``kernels/layout.COPIES`` over those ops, per op;
 * ``row_passes``: ``core/ecc.ROW_PASSES`` over those ops, per op (the
   branch each row CRC pass took);
+* ``launches``: ``kernels/native.LAUNCHES`` over those ops, per op (in an
+  LM cell per token: the mamba kernels' beside the attention kernel's);
 * ``inside_outside``: the top-level backend spans' time (``backend.flush``,
   ``backend.tail``, ``backend.program``) over the benchmark's own backend
   time from its wrappers;
@@ -81,12 +83,14 @@ class SpanTracer(Tracer):
         self.before = {}
         self.copies = {}
         self.row_passes = {}
+        self.kernel_launches = {}
 
     def install(self, backend) -> None:
         super().install(backend)
         spans.reset()
         self.copies0 = dict(layout.COPIES)
         self.passes0 = dict(ecc.ROW_PASSES)
+        self.launches0 = dict(native.LAUNCHES)
         spans.enable()
 
     def begin_profile(self) -> None:
@@ -95,6 +99,8 @@ class SpanTracer(Tracer):
                        for k, v in layout.COPIES.items()}
         self.row_passes = {k: v - self.passes0[k]
                            for k, v in ecc.ROW_PASSES.items()}
+        self.kernel_launches = {k: v - self.launches0[k]
+                                for k, v in native.LAUNCHES.items()}
         super().begin_profile()
         spans.mark()
 
@@ -133,6 +139,8 @@ def analyse(tracer: SpanTracer, win: Window) -> dict:
            "readings": readings, "per_op": per_op,
            "copies": {k: v / ops for k, v in tracer.copies.items()},
            "row_passes": {k: v / ops for k, v in tracer.row_passes.items()},
+           "launches": {k: v / ops
+                        for k, v in tracer.kernel_launches.items()},
            "inside_outside": (inside / tracer.backend_s
                               if tracer.backend_s else None),
            "backend_s": tracer.backend_s, "inside_s": inside}

@@ -51,14 +51,19 @@ SIGNATURES = {
                          _I, _P),
     "flash_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                ctypes.c_float, _I, _I, _I, _I, _I, _P),
+    "mamba_conv_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "mamba_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _P),
 }
 
 # Each entry point launches one kernel; its function's name in a trace.
 TRACE_NAMES = ("search_kernel", "gather_kernel", "lookup_kernel",
-               "plan_kernel", "fused_kernel", "attn_kernel")
+               "plan_kernel", "fused_kernel", "attn_kernel",
+               "mamba_conv_kernel", "mamba_scan_kernel")
 
 LAUNCHES = {"sim_search": 0, "sim_gather": 0, "sim_lookup": 0,
-            "sim_plan": 0, "sim_fused": 0, "flash_attention": 0}
+            "sim_plan": 0, "sim_fused": 0, "flash_attention": 0,
+            "mamba_conv": 0, "mamba_scan": 0}
 
 
 def reset_launches() -> None:
@@ -136,7 +141,9 @@ def launch(entry: str, *args, device: torch.device) -> None:
     the launch is refused.  Tensor arguments pass as their data pointers,
     ``None`` as a null pointer.  The call is the ``kernel.launch`` span."""
     s = spans.ON and spans.begin("kernel.launch")
-    stream = torch.cuda.current_stream(device).cuda_stream
+    # the current stream's handle, without the Stream object that
+    # torch.cuda.current_stream builds (a few microseconds a launch)
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     err = getattr(library(), entry)(*cargs, device.index, stream)
     if s:

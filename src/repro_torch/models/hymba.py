@@ -154,10 +154,10 @@ def _attend_prompt(p: dict, cfg: HymbaConfig, ref: CacheRef, positions,
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), kv
 
 
-def _block(bp: dict, x, cfg: HymbaConfig, lid: int, attn_fn, mamba_state,
-           single_step: bool):
+def _block(bp: dict, x, cfg: HymbaConfig, lid: int, attn_fn, mamba_state):
     """One block around ``attn_fn(h) -> (output, k/v)``; returns (x, k/v,
-    the new mamba state and conv tail)."""
+    the new mamba state and conv tail: ``mamba_state``'s tensors, written
+    in place, where it holds them)."""
     h = block_norm(x, bp["norms"], 0, cfg)
     s = spans.ON and spans.begin(
         "model.attn.global" if cfg.is_global(lid) else "model.attn.window")
@@ -166,8 +166,7 @@ def _block(bp: dict, x, cfg: HymbaConfig, lid: int, attn_fn, mamba_state,
         spans.end(s)
     s = spans.ON and spans.begin("model.mamba")
     m, new_mamba = apply_mamba(bp["mamba"], h, cfg, state=mamba_state[0],
-                               conv_state=mamba_state[1],
-                               single_step=single_step)
+                               conv_state=mamba_state[1])
     if s:
         spans.end(s)
     x = x + 0.5 * (rms_norm(a, eps=cfg.norm_eps)
@@ -191,7 +190,7 @@ def meta_state(model: LM, *, attention=flash_attention) -> MetaState:
         x, kv_l, (st, conv) = _block(
             bp, x, cfg, lid, functools.partial(
                 _attend_prompt, bp["attn"], cfg, ref, positions,
-                kv[ref.kind][ref.index], None, attention), (None, None), False)
+                kv[ref.kind][ref.index], None, attention), (None, None))
         kv[ref.kind][ref.index] = kv_l
         states.append(st[0])
         convs.append(conv[0])
@@ -237,11 +236,11 @@ def prefill(model: LM, tokens, cache_len: int, *, meta: MetaState | None =
     for lid, ref in enumerate(cache_layout(cfg)):
         bp = model.blocks.layer(lid)
         meta_kv = tuple(t[ref.index] for t in meta.kv[ref.kind])
-        x, kv, (state[lid], conv[lid]) = _block(
+        x, kv, _ = _block(
             bp, x, cfg, lid, functools.partial(
                 _attend_prompt, bp["attn"], cfg, ref, positions,
                 shared.get(ref[:2]), meta_kv, attention),
-            (state[lid], conv[lid]), False)
+            (state[lid], conv[lid]))
         if ref.writes:
             shared[ref[:2]] = kv
             _fill(caches[ref.kind], ref, kv, m, s)
@@ -300,8 +299,8 @@ def decode_step(model: LM, token, caches: dict, index: int, *,
         if ref.kind not in RING_KINDS and index >= slots:
             raise IndexError(f"{cfg.name}: text position {index} past a "
                              f"{ref.kind} cache of {slots} slots")
-        x, _, (state[lid], conv[lid]) = _block(
+        x, _, _ = _block(
             bp, x, cfg, lid, functools.partial(
                 _attend_token, bp["attn"], cfg, ref, cache, index, positions,
-                attention), (state[lid], conv[lid]), True)
+                attention), (state[lid], conv[lid]))
     return _final_logits(model, x)[:, 0], caches

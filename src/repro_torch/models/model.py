@@ -258,28 +258,26 @@ def _layer_window(cfg: ModelConfig, lid: int) -> int | None:
 
 def _dense_block(bp: dict, x, cfg: ModelConfig, *, positions, window=None,
                  q_offset=0, kv_cache=None, cache_index=None,
-                 mamba_state=None, single_step=False, enc_out=None,
+                 mamba_state=None, enc_out=None,
                  cross_p=None, attention=flash_attention,
                  tp: Axis | None = None, seq: Axis | None = None):
     """One decoder block: attention (with hymba's mamba heads beside it),
     whisper's cross-attention, then the MLP or the MoE, each behind a norm.
-    Returns (x, aux: the MoE's float32 router loss, else 0.0, the new
-    mamba state or None).  ``tp``: the model axis that ``bp``'s weights
-    are split over; ``seq``: the axis the kv cache's slots are split
-    over."""
+    Returns (x, aux: the MoE's float32 router loss, else 0.0); a
+    ``mamba_state`` handed in is written in place without autograd.
+    ``tp``: the model axis that ``bp``'s weights are split over; ``seq``:
+    the axis the kv cache's slots are split over."""
     aux = 0.0
     h = block_norm(x, bp["norms"], 0, cfg)
     attn_out = apply_attention(bp["attn"], h, cfg, positions=positions,
                                window=window, q_offset=q_offset,
                                kv_cache=kv_cache, cache_index=cache_index,
                                attention=attention, tp=tp, seq=seq)
-    new_mamba = None
     if cfg.family == "hybrid":
         state, conv_state = mamba_state if mamba_state is not None \
             else (None, None)
-        m_out, new_mamba = apply_mamba(bp["mamba"], h, cfg, state=state,
-                                       conv_state=conv_state,
-                                       single_step=single_step, tp=tp)
+        m_out, _ = apply_mamba(bp["mamba"], h, cfg, state=state,
+                               conv_state=conv_state, tp=tp)
         # hymba: parallel attention and mamba heads, averaged after each
         # branch's normalization
         attn_out = 0.5 * (rms_norm(attn_out, eps=cfg.norm_eps)
@@ -298,7 +296,7 @@ def _dense_block(bp: dict, x, cfg: ModelConfig, *, positions, window=None,
     else:
         ff = apply_mlp(bp["mlp"], h,
                        split_axis(tp, bp["mlp"]["wo"].shape[0], cfg.d_ff))
-    return x + ff, aux, new_mamba
+    return x + ff, aux
 
 
 class _EmbedLookup(torch.autograd.Function):
@@ -418,10 +416,9 @@ def _train_block(bp, cp, x, *, cfg, positions, window, enc_out, attention,
     if tp is not None:      # the layer's FSDP gathers, inside the remat
         bp = tp.weights(bp, "blocks")
         cp = None if cp is None else tp.weights(cp, "cross")
-    x, aux, _ = _dense_block(bp, x, cfg, positions=positions, window=window,
-                             enc_out=enc_out, cross_p=cp,
-                             attention=attention, tp=model_axis(tp))
-    return x, aux
+    return _dense_block(bp, x, cfg, positions=positions, window=window,
+                        enc_out=enc_out, cross_p=cp, attention=attention,
+                        tp=model_axis(tp))
 
 
 def _encoder_layer(bp, x, *, cfg, positions, attention, tp=None):
@@ -684,13 +681,12 @@ def prefill(model: LM, tokens, cache_len: int, *, frontend_embeds=None,
         kh = rope(kh, pos, cfg.rope_theta)
         ck[i, :, :kh.shape[1]] = kh.to(ck.dtype)
         cv[i, :, :vh.shape[1]] = vh.to(cv.dtype)
-        x, _, new_m = _dense_block(
+        # the mamba state and conv tail are written in place
+        x, _ = _dense_block(
             bp, x, cfg, positions=positions, window=_layer_window(cfg, i),
             mamba_state=None if mamba is None else (mamba[0][i],
                                                     mamba[1][i]),
             enc_out=enc_out, cross_p=cp, attention=attention, tp=ax)
-        if new_m is not None:
-            mamba[0][i], mamba[1][i] = new_m
     if enc_out is not None:
         caches["enc_out"] = enc_out
     return _final_logits(model, x[:, -1:], tp, table)[:, 0], caches
@@ -730,13 +726,11 @@ def decode_step(model: LM, token, caches: dict, index: int, *,
         else (index % c, min(index, c - 1))
     for i in range(cfg.n_layers):
         bp, cp = _serve_layer(model, i, tp)
-        x, _, new_m = _dense_block(
+        # the mamba state and conv tail are written in place
+        x, _ = _dense_block(
             bp, x, cfg, positions=positions, q_offset=q_offset,
             kv_cache=(ck[i], cv[i]), cache_index=slot,
             mamba_state=None if mamba is None else (mamba[0][i],
                                                     mamba[1][i]),
-            single_step=True, enc_out=enc_out, cross_p=cp,
-            attention=attention, tp=ax, seq=seq)
-        if new_m is not None:
-            mamba[0][i], mamba[1][i] = new_m
+            enc_out=enc_out, cross_p=cp, attention=attention, tp=ax, seq=seq)
     return _final_logits(model, x, tp, table)[:, 0], caches

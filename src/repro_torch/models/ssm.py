@@ -5,8 +5,11 @@ The counterpart of the JAX package's ``models/ssm.py``.  Each block has a
 sequence form (train and prefill) and a single-step form (decode).  The
 time recurrences are Python loops over the sequence, one step a position,
 where the JAX package runs ``jax.lax.scan``; the JAX package has no Pallas
-kernel for them, so they run as plain PyTorch on any device.  The states
-are float32 whatever the parameter dtype.
+kernel for them.  The mamba heads' recurrence serves through the two ops
+of ``kernels/mamba_scan`` (hand-written kernels on the card, their plain
+version on the CPU) and runs as plain PyTorch under autograd; the xLSTM
+loops run as plain PyTorch on any device.  The states are float32
+whatever the parameter dtype.
 
 Under the sharded steps each block takes ``tp``, the mesh's model axis,
 and splits where its placements do (``split_axis``: an axis splits the
@@ -33,6 +36,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.kernels.mamba_scan.ops import mamba_conv, mamba_scan
+from repro_torch.kernels.mamba_scan.ref import (causal_conv_ref, gate,
+                                               scan_inputs)
 from repro_torch.parallel.tensor_parallel import (Axis, copy_to, gather_from,
                                                   gather_shared, reduce_from,
                                                   scatter_to, split_axis)
@@ -74,52 +80,22 @@ class Mamba(nn.Module):
         _dense_init(self.out_proj, cfg.mamba_width, gen)
 
 
-# Positions a serving scan takes at once (:func:`_scan_chunks`).
-SCAN_CHUNK = 16
-
-
 def _mamba_scan(u, delta, a, bmat, cmat, d_skip, h0):
     """u, delta (B, S, D); a (D, N); bmat, cmat (B, S, N); h0 (B, D, N).
 
     h_t = exp(delta a) h_{t-1} + delta * b_t * u_t ;  y_t = c_t . h_t
-    Returns (y (B, S, D), h_final (B, D, N)).  Under autograd one step a
-    position, whose backward holds O(S) states; without it (serving) a
-    chunk of positions at a time (:func:`_scan_chunks`): the same sums,
-    an order of magnitude fewer launches."""
+    Returns (y (B, S, D), h_final (B, D, N)), one step a position: the
+    scan under autograd, whose backward holds O(S) states."""
     log_decay = torch.einsum("bsd,dn->bsdn", delta, a)      # <= 0
     drive = torch.einsum("bsd,bsn->bsdn", delta * u, bmat)
-    if torch.is_grad_enabled():
-        h, hs = h0, []
-        # the positions' views made in one call, not one indexing a step
-        for dec, drv in zip(torch.exp(log_decay).unbind(1), drive.unbind(1)):
-            h = dec * h + drv
-            hs.append(h)
-        hs = torch.stack(hs, dim=1)
-    else:
-        hs = _scan_chunks(log_decay, drive, h0)
+    h, hs = h0, []
+    # the positions' views made in one call, not one indexing a step
+    for dec, drv in zip(torch.exp(log_decay).unbind(1), drive.unbind(1)):
+        h = dec * h + drv
+        hs.append(h)
+    hs = torch.stack(hs, dim=1)
     y = torch.einsum("bsdn,bsn->bsd", hs, cmat)
     return y + u * d_skip, hs[:, -1]
-
-
-def _scan_chunks(log_decay, drive, h0):
-    """Every state of the scan (B, S, D, N), SCAN_CHUNK positions at a time
-    from the state before them: h_t = exp(L_t) h + sum over tau <= t of
-    exp(L_t - L_tau) drive_tau, L the chunk's running sum of the log
-    decays, so that no exponent is above 0."""
-    out = torch.empty_like(drive)
-    h = h0
-    for i in range(0, drive.shape[1], SCAN_CHUNK):
-        run = log_decay[:, i:i + SCAN_CHUNK].cumsum(1)      # (B, c, D, N)
-        c = run.shape[1]
-        later = torch.ones((c, c), dtype=torch.bool,
-                           device=run.device).tril()[..., None, None]
-        weights = torch.exp((run[:, :, None] - run[:, None]).masked_fill(
-            ~later, float("-inf")))                          # (B, t, tau, ..)
-        hs = (weights * drive[:, None, i:i + c]).sum(2) + \
-            torch.exp(run) * h[:, None]
-        out[:, i:i + c] = hs
-        h = hs[:, -1]
-    return out
 
 
 def _mamba_weights(p: dict, d: int, tp: Axis | None):
@@ -138,56 +114,52 @@ def _mamba_weights(p: dict, d: int, tp: Axis | None):
 
 
 def apply_mamba(p: dict, x, cfg: ModelConfig, *, state=None,
-                conv_state=None, single_step: bool = False,
-                tp: Axis | None = None):
+                conv_state=None, tp: Axis | None = None):
     """x (B, S, d).  Returns (y, (ssm_state, conv_state)); state (B, e, N)
     float32, conv_state (B, K - 1, e) the conv's tail in x's dtype, e the
     mamba width (``in_proj``'s columns over two).
     ``tp``: the model axis; ``p`` then holds the rank's channels (the
-    module docstring), and so do the state and the conv tail."""
-    b, s, _ = x.shape
-    n = cfg.ssm_state
+    module docstring), and so do the state and the conv tail.
+
+    Without autograd (serving) the recurrence is the two ops of
+    ``kernels/mamba_scan``, ``mamba_conv`` and ``mamba_scan``, at any S: the
+    kernels on the card, ref.py on the CPU, the outputs' shapes on meta
+    tensors (the dry run).  They write the new conv tail and state into
+    ``conv_state`` and ``state`` in place, which must be contiguous, and
+    the call returns those tensors.  Under autograd it is the plain code,
+    one step a position (:func:`_mamba_scan`), and returns new tensors,
+    leaving those it was handed as they were."""
+    b, n = x.shape[0], cfg.ssm_state
     ax, w_in, x_proj = _mamba_weights(p, x.shape[-1], tp)
     d = w_in.shape[-1] // 2                           # the rank's channels
-    xz = torch.einsum("bsd,de->bse", copy_to(x, ax), w_in)
-    u, z = xz[..., :d], xz[..., d:]
-
-    kconv = cfg.ssm_conv
+    grad = torch.is_grad_enabled()
+    # the products by matmul, not einsum: half the host time a call, most
+    # of what a decode step's product costs
+    xz = copy_to(x, ax) @ w_in
     if conv_state is None:
-        conv_state = torch.zeros((b, kconv - 1, d), dtype=u.dtype,
-                                 device=u.device)
-    upad = torch.cat([conv_state, u], dim=1)          # (B, S + K - 1, d)
-    # depthwise causal conv along the sequence, summed tap by tap in x's
-    # dtype in the JAX package's order
-    u = sum(upad[:, i:i + s] * p["conv_w"][i] for i in range(kconv))
-    u = nn.functional.silu(u.float()).to(x.dtype)
-    new_conv_state = upad[:, -(kconv - 1):] if kconv > 1 else conv_state
-
-    # a partial sum over the channels, summed, then read by each rank's own
-    # channels (its gradient summed over them)
-    proj = copy_to(reduce_from(torch.einsum("bsd,de->bse", u, x_proj)
-                               .float(), ax), ax)
-    bmat, cmat, dt_raw = proj[..., :n], proj[..., n:2 * n], proj[..., 2 * n:]
-    delta = torch.logaddexp(dt_raw, torch.zeros_like(dt_raw))   # softplus
-    delta = delta.expand(b, s, d)
-    a = -torch.exp(p["a_log"])                        # (d, N), negative
-
+        conv_state = torch.zeros((b, cfg.ssm_conv - 1, d), dtype=xz.dtype,
+                                 device=xz.device)
     if state is None:
         state = torch.zeros((b, d, n), dtype=torch.float32, device=x.device)
-    if single_step:
-        # one token: the closed-form update, no loop
-        dec = torch.exp(torch.einsum("bd,dn->bdn", delta[:, 0], a))
-        drv = torch.einsum("bd,bn->bdn", delta[:, 0] * u[:, 0].float(),
-                           bmat[:, 0])
-        state = dec * state + drv
-        y = torch.einsum("bdn,bn->bd", state, cmat[:, 0])[:, None]
-        y = y + u.float() * p["d_skip"]
+    if grad:
+        u, conv_state = causal_conv_ref(xz[..., :d], conv_state,
+                                        p["conv_w"])
     else:
+        u, conv_state = mamba_conv(xz, conv_state, p["conv_w"])
+    proj = u @ x_proj
+    if ax is not None or grad:
+        # a partial sum over the channels, summed, then read by each rank's
+        # own channels (its gradient summed over them); the scan op reads
+        # the product in x's dtype where nothing sums it
+        proj = copy_to(reduce_from(proj.float(), ax), ax)
+    if grad:
+        bmat, cmat, delta, a = scan_inputs(proj, p["a_log"])
         y, state = _mamba_scan(u.float(), delta, a, bmat, cmat, p["d_skip"],
                                state)
-    y = y.to(x.dtype) * nn.functional.silu(z.float()).to(x.dtype)
-    out = reduce_from(torch.einsum("bsd,de->bse", y, p["out_proj"]), ax)
-    return out, (state, new_conv_state)
+        y = gate(y, xz[..., d:], x.dtype)
+    else:
+        y, state = mamba_scan(xz, u, proj, p["a_log"], p["d_skip"], state)
+    return reduce_from(y @ p["out_proj"], ax), (state, conv_state)
 
 
 # ================================================================== mLSTM

@@ -1119,7 +1119,8 @@ def test_sharded_flush_on_card_matches_cpu():
         if device == dev:
             assert grew == {"sim_search": 1, "sim_plan": 1, "sim_lookup": 1,
                             "sim_gather": 1, "sim_fused": 0,
-                            "flash_attention": 0}
+                            "flash_attention": 0, "mamba_conv": 0,
+                            "mamba_scan": 0}
         results[device] = [t.result() for t in tickets]
         stats[device] = (dataclasses.asdict(be.stats),
                          be.timeline.burst_latencies, be.timeline.energy_pj)
@@ -1226,7 +1227,8 @@ def test_reliable_flush_on_card_matches_cpu(name):
         if device == dev:
             assert grew == {"sim_search": 1, "sim_plan": 1, "sim_lookup": 1,
                             "sim_gather": 1, "sim_fused": 0,
-                            "flash_attention": 0}
+                            "flash_attention": 0, "mamba_conv": 0,
+                            "mamba_scan": 0}
         results[device] = [_outcome(t) for t in tickets]
         stats[device] = (dataclasses.asdict(be.stats),
                          dataclasses.asdict(rel.stats))
@@ -1798,3 +1800,176 @@ def test_sharded_decode_cell_of_a_fake_world_traced_equals_its_run(arch):
     assert native.LAUNCHES["flash_attention"] == (
         0 if cfg.family == "ssm" else cfg.n_layers)
     assert traced.collective_bytes["all-gather"] > 0
+
+
+# ------------------------------------------ the mamba heads' two kernels
+
+def _mamba_inputs(dev, dtype, b, s, e=3200, n=16, k=4, proj_dtype=None,
+                  seed=0):
+    """hymba-1.5b-base's widths (e 3,200, N 16, K 4): xz, a nonzero conv
+    tail, conv_w, proj, a_log, d_skip and a nonzero state on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed + 7 * s + b)
+
+    def randn(*shape, scale=1.0, dt=torch.float32):
+        return (torch.randn(shape, device=dev, generator=g) * scale).to(dt)
+    return dict(xz=randn(b, s, 2 * e, dt=dtype),
+                conv_tail=randn(b, k - 1, e, dt=dtype),
+                conv_w=randn(k, e, scale=0.5, dt=dtype),
+                proj=randn(b, s, 2 * n + 1, dt=proj_dtype or dtype),
+                a_log=randn(e, n, scale=0.5), d_skip=randn(e),
+                state=randn(b, e, n))
+
+
+def _bf16_ulps(got, want):
+    """Each bf16 output's distance from the plain version's, in ulps of the
+    plain value (2^(e - 8) for a value of binade 2^(e - 1))."""
+    got, want = got.float(), want.float()
+    ulp = torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8)
+    return (got - want).abs() / ulp.clamp_min(2.0 ** -133)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,proj_f32", [
+    (torch.bfloat16, False), (torch.bfloat16, True), (torch.float32, True)])
+@pytest.mark.parametrize("s", [1, 16, 17, 1024])
+@pytest.mark.parametrize("b", [1, 2])
+def test_mamba_kernels_match_plain(b, s, dtype, proj_f32):
+    """``mamba_conv`` and ``mamba_scan`` on the card against ``ref.py`` on
+    the card, one launch each: the conv's output and new tail bit for bit;
+    the final state within 1e-5 relative (the updates round as the plain
+    version's do); the scan's output in float32 within 1e-5 relative, in
+    bf16 at least 99.9 % bit for bit and the rest within 3 ulps or, where
+    the sum cancels to near 0, within 1e-6 of the largest output: the
+    c . h sum runs in another order, so y may round to bf16 one ulp apart,
+    which the product with silu(z) scales and rounds again.  proj in
+    float32 is the sharded step's (summed over ranks)."""
+    from repro_torch.kernels.mamba_scan.ops import mamba_conv, mamba_scan
+    from repro_torch.kernels.mamba_scan.ref import (causal_conv_ref,
+                                                   selective_scan_ref)
+    dev = _cuda_or_skip()
+    c = _mamba_inputs(dev, dtype, b, s,
+                      proj_dtype=torch.float32 if proj_f32 else None)
+    e = c["conv_w"].shape[1]
+    u_ref, tail_ref = causal_conv_ref(c["xz"][..., :e], c["conv_tail"],
+                                      c["conv_w"])
+    y_ref, h_ref = selective_scan_ref(u_ref, c["xz"][..., e:],
+                                      c["proj"].float(), c["a_log"],
+                                      c["d_skip"], c["state"])
+    tail, state = c["conv_tail"].clone(), c["state"].clone()
+    before = dict(native.LAUNCHES)
+    u, _ = mamba_conv(c["xz"], tail, c["conv_w"])
+    y, _ = mamba_scan(c["xz"], u, c["proj"], c["a_log"], c["d_skip"], state)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["mamba_conv"] == before["mamba_conv"] + 1
+    assert native.LAUNCHES["mamba_scan"] == before["mamba_scan"] + 1
+    assert torch.equal(u, u_ref) and torch.equal(tail, tail_ref)
+    assert float((state - h_ref).norm() / h_ref.norm()) < 1e-5
+    if dtype == torch.bfloat16:
+        ulps = _bf16_ulps(y, y_ref)
+        near = (y.float() - y_ref.float()).abs() <= \
+            1e-6 * y_ref.float().abs().max()
+        exact = float((ulps == 0).float().mean())
+        assert exact >= 0.999, exact
+        assert bool(((ulps <= 3) | near).all()), float(ulps[~near].max())
+    else:
+        assert float((y - y_ref).norm() / y_ref.norm()) < 1e-5
+
+
+@pytest.mark.gpu
+def test_mamba_kernels_write_the_caches_in_place():
+    """Handed a layer's views of the serving caches ((L, B, ...) tensors),
+    the kernels write that layer's new tail and state there and touch no
+    other layer; ``apply_mamba`` returns the views themselves, so its
+    callers copy nothing back."""
+    from repro_torch.kernels.mamba_scan.ops import mamba_conv, mamba_scan
+    from repro_torch.kernels.mamba_scan.ref import (causal_conv_ref,
+                                                   selective_scan_ref)
+    from repro_torch.models import ssm
+    dev = _cuda_or_skip()
+    c = _mamba_inputs(dev, torch.bfloat16, 2, 5)
+    e = c["conv_w"].shape[1]
+    tails = torch.stack([c["conv_tail"] * (i + 1) for i in range(3)])
+    states = torch.stack([c["state"] * (i + 1) for i in range(3)])
+    keep_t, keep_s = tails.clone(), states.clone()
+    u, held_t = mamba_conv(c["xz"], tails[1], c["conv_w"])
+    y, held_s = mamba_scan(c["xz"], u, c["proj"], c["a_log"], c["d_skip"],
+                           states[1])
+    torch.cuda.synchronize()
+    u_ref, tail_ref = causal_conv_ref(c["xz"][..., :e], keep_t[1],
+                                      c["conv_w"])
+    _, h_ref = selective_scan_ref(u_ref, c["xz"][..., e:], c["proj"].float(),
+                                  c["a_log"], c["d_skip"], keep_s[1])
+    assert held_t.data_ptr() == tails[1].data_ptr()
+    assert held_s.data_ptr() == states[1].data_ptr()
+    assert torch.equal(tails[1], tail_ref)
+    assert float((states[1] - h_ref).norm() / h_ref.norm()) < 1e-5
+    for i in (0, 2):
+        assert torch.equal(tails[i], keep_t[i])
+        assert torch.equal(states[i], keep_s[i])
+    cfg = reduced_config(get_config("hymba-1.5b-base"))
+    model = init_model(cfg, seed=0, device=dev)
+    p = model.blocks.layer(0)["mamba"]
+    dt = p["in_proj"].dtype
+    views = (torch.zeros(2, cfg.mamba_width, cfg.ssm_state, device=dev),
+             torch.zeros(2, cfg.ssm_conv - 1, cfg.mamba_width, device=dev,
+                         dtype=dt))
+    x = torch.randn(2, 3, cfg.d_model, device=dev).to(dt)
+    with torch.no_grad():
+        _, new = ssm.apply_mamba(p, x, cfg, state=views[0],
+                                 conv_state=views[1])
+    assert new[0] is views[0] and new[1] is views[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hymba_base_served_on_card_matches_cpu(dtype):
+    """A reduced hymba-1.5b-base served on the card and on the CPU with the
+    same weights: the same token counts, and in float32 every request's
+    first logits within 1e-4 relative; on the card every serving mamba
+    call ran the two kernels, a launch each a layer of every prefill and
+    decode step, and on the CPU none."""
+    import simbench.systems.lm as lm_system
+    from simbench.yardstick.kinds.serve import draw_weights
+    dev = _cuda_or_skip()
+    cfg = dataclasses.replace(reduced_config(get_config("hymba-1.5b-base")),
+                              dtype=dtype)
+    conf = dataclasses.asdict(cfg)
+    conf["global_layers"] = list(cfg.global_layers)
+    conf["kv_groups"] = [list(g) for g in cfg.kv_groups]
+    weights = draw_weights(conf, 3, torch.device("cpu"))
+    gen = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in (19, 5, 12)]
+    runs = {}
+    for device in (dev, torch.device("cpu")):
+        from repro_torch.models.model import LM
+        from repro_torch.serve.batching import Request
+        model = LM(cfg, device)
+        with torch.no_grad():
+            lm_system.load_weights(model, weights)
+        seen = {}
+        cache = SimPagedKVCache(cfg, n_pages=64, page_tokens=4,
+                                device=device)
+        engine = ServeEngine(
+            model, max_slots=2, cache_len=64, paged_cache=cache,
+            on_token=lambda r, t, lg: seen.setdefault(r, []).append(
+                lg[0, :cfg.vocab_size].float().cpu()))
+        before = dict(native.LAUNCHES)
+        for rid, prompt in enumerate(prompts):
+            engine.submit(Request(req_id=rid, prompt=prompt,
+                                  max_new_tokens=10 + rid))
+        engine.run()
+        runs[device.type] = (engine, seen, {
+            k: native.LAUNCHES[k] - before[k]
+            for k in ("mamba_conv", "mamba_scan")})
+    (card, card_seen, launched), (cpu, cpu_seen, none) = (runs["cuda"],
+                                                          runs["cpu"])
+    steps = cfg.n_layers * (card.prefills + card.decodes)
+    assert launched == {"mamba_conv": steps, "mamba_scan": steps}
+    assert steps > 0 and none == {"mamba_conv": 0, "mamba_scan": 0}
+    assert [len(c.tokens) for c in card.completed] == [
+        len(c.tokens) for c in cpu.completed]
+    if dtype == "float32":
+        for rid in cpu_seen:
+            got, want = card_seen[rid][0], cpu_seen[rid][0]
+            assert float((got - want).norm() / want.norm()) < 1e-4

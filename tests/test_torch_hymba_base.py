@@ -320,50 +320,31 @@ def test_the_paper_table_hymba_keeps_its_config_and_ring():
         eng.run()
 
 
-def _saved_bytes(fn):
-    """``fn()`` and the bytes autograd saved for its backward."""
-    total = [0]
-
-    def pack(t):
-        total[0] += t.numel() * t.element_size()
-        return t
-    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
-        out = fn()
-    return out, total[0]
-
-
 def test_the_serving_scan_equals_the_loop_that_autograd_keeps():
-    """The mamba scan's two sides: without autograd (serving) a chunk of
-    positions at a time, under it one position a step.  Both give the same
-    outputs and gradients; the chunked form would save some eleven times the
-    loop's bytes for its backward, which is why training keeps the loop."""
+    """The mamba scan's two sides on the CPU: without autograd (serving)
+    the ``mamba_scan`` op (ref.py's recurrence, the final state written in
+    place), under it ``_mamba_scan``'s loop.  Both give the same output
+    and final state bit for bit, over several hundred positions from a
+    nonzero state, in float32 and in bf16."""
+    from repro_torch.kernels.mamba_scan.ops import mamba_scan
+    from repro_torch.kernels.mamba_scan.ref import gate, scan_inputs
     from repro_torch.models import ssm
     gen = torch.Generator().manual_seed(0)
-    b, s, d, n = 2, 3 * ssm.SCAN_CHUNK + 5, 8, 4
+    b, s, e, n = 2, 301, 24, 16
 
     def randn(*shape):
-        return torch.randn(shape, generator=gen, dtype=torch.float64)
-    u, bm, cm, h0 = randn(b, s, d), randn(b, s, n), randn(b, s, n), \
-        randn(b, d, n)
-    delta = torch.nn.functional.softplus(randn(b, s, d))
-    a, d_skip = -randn(d, n).exp(), randn(d)
-    u.requires_grad_()
-
-    def chunked():
-        log_decay = torch.einsum("bsd,dn->bsdn", delta, a)
-        drive = torch.einsum("bsd,bsn->bsdn", delta * u, bm)
-        hs = ssm._scan_chunks(log_decay, drive, h0)
-        return torch.einsum("bsdn,bsn->bsd", hs, cm) + u * d_skip, hs[:, -1]
-
-    (y_loop, h_loop), loop_bytes = _saved_bytes(
-        lambda: ssm._mamba_scan(u, delta, a, bm, cm, d_skip, h0))
-    (y_chunk, h_chunk), chunk_bytes = _saved_bytes(chunked)
-    with torch.no_grad():
-        y_serve, h_serve = ssm._mamba_scan(u, delta, a, bm, cm, d_skip, h0)
-    for got in (y_chunk, y_serve):
-        torch.testing.assert_close(got, y_loop, rtol=1e-10, atol=1e-10)
-    torch.testing.assert_close(h_serve, h_loop, rtol=1e-10, atol=1e-10)
-    g_loop, = torch.autograd.grad(y_loop.sum() + h_loop.sum(), u)
-    g_chunk, = torch.autograd.grad(y_chunk.sum() + h_chunk.sum(), u)
-    torch.testing.assert_close(g_chunk, g_loop, rtol=1e-9, atol=1e-9)
-    assert chunk_bytes > 4 * loop_bytes, (chunk_bytes, loop_bytes)
+        return torch.randn(shape, generator=gen)
+    for dtype in (torch.float32, torch.bfloat16):
+        xz, u = randn(b, s, 2 * e).to(dtype), randn(b, s, e).to(dtype)
+        proj, a_log = randn(b, s, 2 * n + 1).to(dtype), randn(e, n) * 0.5
+        d_skip, h0 = randn(e), randn(b, e, n)
+        bmat, cmat, delta, a = scan_inputs(proj.float(), a_log)
+        with torch.enable_grad():
+            y_loop, h_loop = ssm._mamba_scan(u.float(), delta, a, bmat, cmat,
+                                             d_skip, h0)
+        y_loop = gate(y_loop, xz[..., e:], dtype)
+        h = h0.clone()
+        with torch.no_grad():
+            y, held = mamba_scan(xz, u, proj, a_log, d_skip, h)
+        assert held is h
+        assert torch.equal(y, y_loop) and torch.equal(h, h_loop)

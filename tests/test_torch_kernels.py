@@ -22,6 +22,7 @@ from repro_torch.kernels.layout import (chunk_words_to_planes,
                                         pages_to_chunk_words,
                                         planes_to_chunk_words,
                                         tensor_to_words, words_to_tensor)
+from repro_torch.kernels.mamba_scan.ops import mamba_conv, mamba_scan
 from repro_torch.kernels.sim_fused.ops import sim_fused, sim_fused_lookup
 from repro_torch.kernels.sim_gather.ops import sim_gather
 from repro_torch.kernels.sim_plan.ops import sim_plan
@@ -179,9 +180,14 @@ def test_cpu_tensors_never_launch():
              _t(np.ones((1, 2), np.uint32)), _t(ids), _t(seeds),
              randomized=True)
     sim_fused(_t(lo), _t(hi), _t(q), _t(m), max_out=4, randomized=True)
+    xz = torch.ones((1, 3, 8))
+    u, _ = mamba_conv(xz, torch.zeros((1, 3, 4)), torch.ones((4, 4)))
+    mamba_scan(xz, u, torch.ones((1, 3, 9)), torch.zeros((4, 4)),
+               torch.ones(4), torch.zeros((1, 4, 4)))
     assert native.LAUNCHES == {"sim_search": 0, "sim_gather": 0,
                                "sim_lookup": 0, "sim_plan": 0,
-                               "sim_fused": 0, "flash_attention": 0}
+                               "sim_fused": 0, "flash_attention": 0,
+                               "mamba_conv": 0, "mamba_scan": 0}
 
 
 def test_wrappers_refuse_other_devices():
